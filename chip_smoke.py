@@ -1,0 +1,610 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. Phases, in order; any failure exits non-zero
+and prints no result:
+
+1. card and build: the card's name and power limit, build of every kernel
+   under objectdetection_torch/csrc/ (one nvcc per source, in parallel);
+   TF32 is turned off for the comparisons;
+2. NMS kernel against its plain version at the two main-path shapes;
+3. ROIAlign kernel against its plain version at the COCO pyramid shapes, f32
+   (bit-equal) and bf16 (stated tolerance), box stage and mask stage;
+4. end to end: COCO_CONFIG (ResNet-101 + FPN, 1024², bf16) with seeded random
+   weights answers 3 requests of batch 2 through ``make_infer_fn``; the kernel
+   launch counters are read around that run; then where a batch's time goes
+   (CUDA-event spans per stage, the entry points, one profiled batch); then
+   runs at ``detection_min_threshold=0.0``, bf16 and f32, are held stage by
+   stage against the plain path on the card.
+
+The line before the last is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 and bf16 FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
+# f32 operations of one IoU test: 2 min, 2 max, 6 sub, 3 mul, 1 add, 1 div,
+# 2 compares
+IOU_OPS = 17
+BATCH = 2
+REPS = 10  # batches per stage and entry-point timing
+TOP = 12  # largest device kernels listed from the profiled batch
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------- phase 1
+
+
+def card_and_build():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    from objectdetection_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    reports = cuda_build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")
+    for name, report in sorted(reports.items()):
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("tf32 off for the comparisons: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False")
+    return card
+
+
+# ---------------------------------------------------------------- phase 2
+
+
+def nms_inputs(gen, n: int, num_classes: int, pads: int, device):
+    """Score-sorted canonical boxes with clusters, duplicates, zero-area and
+    all-zero rows; class ids in [0, num_classes) and -1 on the padded tail."""
+    import torch
+
+    b = BATCH
+    centers = torch.rand(b, 12, 2, generator=gen)
+    pick = torch.randint(0, 12, (b, n), generator=gen)
+    ctr = torch.gather(centers, 1, pick[..., None].expand(b, n, 2))
+    ctr = ctr + 0.03 * torch.randn(b, n, 2, generator=gen)
+    size = 0.02 + 0.25 * torch.rand(b, n, 2, generator=gen)
+    boxes = torch.cat([ctr - size / 2, ctr + size / 2], -1).clamp(0, 1)
+    dup = torch.rand(b, n, generator=gen) < 0.05  # exact duplicates of a neighbour
+    boxes[:, 1:][dup[:, 1:]] = boxes[:, :-1][dup[:, 1:]]
+    flat = torch.rand(b, n, generator=gen) < 0.03  # zero-area rows
+    boxes[..., 2][flat] = boxes[..., 0][flat]
+    zero = torch.rand(b, n, generator=gen) < 0.03  # invalid (zeroed) rows
+    boxes[zero] = 0.0
+    cls = torch.randint(0, num_classes, (b, n), generator=gen, dtype=torch.int32)
+    if pads:
+        boxes[:, n - pads:] = 0.0
+        cls[:, n - pads:] = -1
+    return boxes.to(device).contiguous(), cls.to(device).contiguous()
+
+
+def nms_ops(table: "torch.Tensor", cls: "torch.Tensor", budget_rows: int) -> float:
+    """IoU tests greedy NMS needs on this data: each row up to the stop is
+    tested against the same-class survivors before it."""
+    import torch
+
+    total = 0
+    for b in range(table.shape[0]):
+        alive = (table[b, :budget_rows] != 0).any(-1)
+        c = cls[b, :budget_rows].long()
+        for k in torch.unique(c).tolist():
+            m = c == k
+            before = torch.cumsum(alive[m].long(), 0) - alive[m].long()
+            total += int(before.sum())
+    return total * IOU_OPS
+
+
+def stop_row(table, tile: int, budget: int) -> int:
+    """Rows the kernel resolves: up to the end of the tile where the survivor
+    count reaches the budget."""
+    import torch
+
+    rows = 0
+    for b in range(table.shape[0]):
+        live = torch.cumsum((table[b] != 0).any(-1).long(), 0)
+        hit = torch.nonzero(live >= budget)
+        end = table.shape[1] if hit.numel() == 0 else int(hit[0]) // tile * tile + tile
+        rows = max(rows, min(end, table.shape[1]))
+    return rows
+
+
+def nms_phase(device):
+    import torch
+
+    from objectdetection_torch.ops import nms
+
+    gen = torch.Generator().manual_seed(1)
+    stages = [
+        ("proposals", 6000, 1, 0, 0.7, 1000),
+        ("detections", 1000, 81, 24, 0.3, 100),
+    ]
+    rec = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0,
+           "library_ms": None}
+    for name, n, k, pads, thr, budget in stages:
+        boxes, cls = nms_inputs(gen, n, k, pads, device)
+        out_k = nms.suppress(boxes, cls, thr, budget)
+        out_p = nms.suppress_plain(boxes, cls, thr, budget)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, out_p):
+            bad = int(((out_k != 0).any(-1) != (out_p != 0).any(-1)).sum())
+            fail(f"nms {name}: kernel survivor table differs from plain ({bad} rows)")
+        rec["max_abs_err"] = max(rec["max_abs_err"], float((out_k - out_p).abs().max()))
+        survivors = int((out_k != 0).any(-1).sum())
+        ms = time_ms(lambda: nms.suppress(boxes, cls, thr, budget), 50)
+        plain_ms = time_ms(lambda: nms.suppress_plain(boxes, cls, thr, budget), 3, warmup=1)
+        rows = stop_row(out_p, nms.TILE, budget)
+        bytes_ = BATCH * n * (16 + 4 + 16)
+        ops = nms_ops(out_p, cls, rows)
+        rec["ms"] += ms
+        rec["plain_ms"] += plain_ms
+        rec["bytes_ms"] += bytes_ / PEAK_BYTES * 1e3
+        rec["ops_ms"] += ops / PEAK_F32 * 1e3
+        log(f"nms {name}: B={BATCH} N={n} thr={thr} budget={budget}: kernel == plain "
+            f"({survivors} survivors, {rows} rows resolved); kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms")
+    return rec
+
+
+# ---------------------------------------------------------------- phase 3
+
+
+def roi_boxes(gen, r: int, device):
+    """Random boxes plus zero, flat (clipped), full-image and tiny boxes."""
+    import torch
+
+    y1x1 = torch.rand(BATCH, r, 2, generator=gen) * 0.8
+    hw = torch.rand(BATCH, r, 2, generator=gen) ** 2 * 0.6
+    boxes = torch.cat([y1x1, (y1x1 + hw).clamp(max=1.0)], -1)
+    q = r // 10
+    boxes[:, :q] = 0.0  # zero boxes (padding rows)
+    boxes[:, q:2 * q, 2] = boxes[:, q:2 * q, 0]  # flat boxes
+    boxes[:, 2 * q:2 * q + 5] = torch.tensor([0.0, 0.0, 1.0, 1.0])  # full image
+    tiny = boxes[:, 3 * q:4 * q]
+    tiny[..., 2:] = tiny[..., :2] + 1e-3
+    return boxes.to(device).contiguous()
+
+
+def roi_phase(device):
+    import torch
+
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.ops import roi_align
+
+    cfg = COCO_CONFIG
+    gen = torch.Generator().manual_seed(2)
+    image = tuple(cfg.image_shape[:2])
+    c = cfg.fpn_channels
+    shapes = cfg.feature_shapes()[:4]
+    feats32 = [torch.randn(BATCH, h, w, c, generator=gen).to(device) for h, w in shapes]
+    feats16 = [f.to(torch.bfloat16) for f in feats32]
+    stages = [("box", 1000, cfg.pool_shape), ("mask", 100, cfg.mask_pool_shape)]
+    rec = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0,
+           "library_ms": None}
+    for name, r, crop in stages:
+        boxes = roi_boxes(gen, r, device)
+        k32 = roi_align.batched_multilevel_roi_align(feats32, boxes, image, crop)
+        p32 = roi_align.batched_multilevel_roi_align_plain(feats32, boxes, image, crop)
+        torch.cuda.synchronize()
+        if not torch.equal(k32, p32):
+            fail(f"roi_align {name} f32: kernel not bit-equal to plain "
+                 f"(max |diff| {float((k32 - p32).abs().max())})")
+        k16 = roi_align.batched_multilevel_roi_align(feats16, boxes, image, crop)
+        p16 = roi_align.batched_multilevel_roi_align_plain(feats16, boxes, image, crop)
+        err = float((k16.float() - p16.float()).abs().max())
+        tol = roi_align.bf16_tolerance(feats16)
+        if not err <= tol:
+            fail(f"roi_align {name} bf16: max |kernel - plain| {err} > {tol}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        ms = time_ms(lambda: roi_align.batched_multilevel_roi_align(feats16, boxes, image, crop), 50)
+        plain_ms = time_ms(
+            lambda: roi_align.batched_multilevel_roi_align_plain(feats16, boxes, image, crop), 5)
+        ms32 = time_ms(lambda: roi_align.batched_multilevel_roi_align(feats32, boxes, image, crop), 50)
+        rows = roi_align.touched_rows(feats16, boxes, image, crop)
+        outs = BATCH * r * crop[0] * crop[1] * c
+        bytes_ = rows * c * 2 + boxes.numel() * 4 + outs * 2
+        ops = outs * 7  # 4 products + 3 sums per output
+        rec["ms"] += ms
+        rec["plain_ms"] += plain_ms
+        rec["bytes_ms"] += bytes_ / PEAK_BYTES * 1e3
+        rec["ops_ms"] += ops / PEAK_BF16 * 1e3
+        log(f"roi_align {name}: B={BATCH} R={r} {crop[0]}x{crop[1]} C={c}: f32 bit-equal; "
+            f"bf16 max |diff| {err:.3g} <= tol {tol:.3g}; kernel bf16 {ms:.4f} ms "
+            f"(f32 {ms32:.4f} ms), plain bf16 {plain_ms:.3f} ms; "
+            f"bound {bytes_ / PEAK_BYTES * 1e3:.4f} ms ({bytes_ / 1e6:.1f} MB)")
+    return rec
+
+
+# ---------------------------------------------------------------- phase 4
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Route both kernel wrappers to their plain versions (for comparison)."""
+    from objectdetection_torch.ops import nms, roi_align
+
+    saved = nms.suppress, roi_align.batched_multilevel_roi_align
+    nms.suppress = nms.suppress_plain
+    roi_align.batched_multilevel_roi_align = roi_align.batched_multilevel_roi_align_plain
+    try:
+        yield
+    finally:
+        nms.suppress, roi_align.batched_multilevel_roi_align = saved
+
+
+def rms(a, b) -> float:
+    import torch
+
+    return float(torch.sqrt(torch.mean((a.float() - b.float()) ** 2)))
+
+
+def stage_breakdown(model, params, infer, images, windows, device):
+    """Where a batch's time goes: CUDA-event spans of the main path's stages
+    over REPS batches; the same batch through the entry points on the host
+    clock; one batch under torch.profiler for the device's busy share and its
+    largest kernels."""
+    import torch
+
+    from objectdetection_torch import detector
+    from objectdetection_torch.anchors import config_anchors
+    from objectdetection_torch.geometry import norm_boxes
+    from objectdetection_torch.layers.detection import detection_layer
+    from objectdetection_torch.layers.proposals import proposal_layer
+
+    cfg = model.config
+    image = tuple(cfg.image_shape[:2])
+    x = torch.as_tensor(images, device=device)
+    win = torch.as_tensor(windows, device=device)
+    anchors = torch.from_numpy(config_anchors(cfg)).to(device)
+    spans = {}
+
+    def stage(name, fn, *a):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a)
+        end.record()
+        spans.setdefault(name, []).append((start, end))
+        return out
+
+    def run_batch():
+        feats, _, probs, deltas = stage("backbone+rpn", model.extract, x)
+        props = stage("proposals", proposal_layer, probs, deltas, anchors, cfg)
+        _, cls_probs, bbox = stage("box stage", model.classify_rois, feats, props)
+        det = stage("detection", detection_layer, props, cls_probs, bbox,
+                    norm_boxes(win, image), cfg)
+        stage("mask stage", model.predict_masks, feats, det[..., :4],
+              det[..., 4].to(torch.int64))
+
+    with torch.inference_mode():
+        run_batch()
+        torch.cuda.synchronize()
+        spans.clear()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            run_batch()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / REPS
+        ms = {k: sum(s.elapsed_time(e) for s, e in v) / len(v) for k, v in spans.items()}
+        entry = {
+            "module forward": lambda: model(x, win),
+            "forward_inference": lambda: detector.forward_inference(params, x, win, cfg),
+            "make_infer_fn": lambda: infer(params, images, windows),
+        }
+        entry_ms = {name: time_host_ms(fn, REPS) for name, fn in entry.items()}
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+            t0 = time.perf_counter()
+            run_batch()
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    if not busy > 0:
+        fail("stages: the profiler saw no device time")
+    log(f"stages: wall {wall:.3f} ms per batch over {REPS} batches")
+    for k, v in ms.items():
+        log(f"  stage {k:14s} {v:8.3f} ms ({100 * v / wall:5.1f}% of wall)")
+    for k, v in entry_ms.items():
+        log(f"  entry point {k:18s} {v:8.3f} ms per batch")
+    log(f"  profiled batch: wall {prof_wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / prof_wall:.1f}%)")
+    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:TOP]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:80]}")
+
+
+def time_host_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def kernel_vs_plain(model, params, request, device):
+    """Threshold-0 runs (so that under random weights the class-aware NMS and
+    the 14x14 stage carry real rows), bf16 and f32, held against the plain
+    path on the card. Each kernel stage is run again in its plain version on
+    the kernel path's own inputs:
+
+    - proposals and detection rows (NMS): identical;
+    - the 7x7 and 14x14 ROIAlign outputs: bit-equal in f32, within
+      ``roi_align.bf16_tolerance`` in bf16;
+    - class probs and masks, the heads applied to the plain pooled tensors:
+      identical in f32.
+
+    In bf16 the witness is f32: the plain ROIAlign of the same pyramid cast to
+    f32, and the heads run in f32 on it. The kernel's pooled tensors must be no
+    further (RMS) from it than the plain version's, since the kernel rounds
+    once where the plain version rounds after every op. The heads amplify
+    rounding differences, so class probs and masks are held in RMS to twice
+    the plain path's own distance from the f32 heads: each path lies within
+    about that distance of the f32 output, so the two lie within twice it of
+    each other.
+    """
+    import torch
+
+    from objectdetection_torch import detector
+    from objectdetection_torch.anchors import config_anchors
+    from objectdetection_torch.geometry import norm_boxes
+    from objectdetection_torch.layers.detection import detection_layer
+    from objectdetection_torch.layers.proposals import proposal_layer
+    from objectdetection_torch.models.mask_rcnn import compute_dtype
+    from objectdetection_torch.ops import nms, roi_align
+
+    cfg = model.config
+    image = tuple(cfg.image_shape[:2])
+    anchors = torch.from_numpy(config_anchors(cfg)).to(device)
+    align_plain = roi_align.batched_multilevel_roi_align_plain
+    for dtype in ("bfloat16", "float32"):
+        cfg0 = cfg.replace(detection_min_threshold=0.0, compute_dtype=dtype)
+        dt = compute_dtype(cfg0)
+        images, windows = (torch.as_tensor(a, device=device) for a in request())
+        with torch.inference_mode():
+            res, it = detector.forward_inference(params, images, windows, cfg0,
+                                                 return_intermediates=True)
+            feats = [it["pyramid"][f"p{i}"] for i in range(2, 6)]
+            props, det = it["proposals"], it["detections"]
+            boxes, ids = det[..., :4], det[..., 4].to(torch.int64)
+            before = (nms.launches, roi_align.launches)
+            with plain_path():
+                props_p = proposal_layer(it["rpn_class_probs"], it["rpn_bbox"], anchors, cfg0)
+                det_p = detection_layer(props, it["mrcnn_class_probs"], it["mrcnn_bbox"],
+                                        norm_boxes(windows, image), cfg0)
+            if (nms.launches, roi_align.launches) != before:
+                fail("e2e threshold 0: the plain path launched a kernel")
+            roi_p = align_plain(feats, props, image, cfg.pool_shape)
+            mask_p = align_plain(feats, boxes, image, cfg.mask_pool_shape)
+            probs_p = model.mrcnn(roi_p, dt)[1]
+            masks_p = model.mrcnn_mask(mask_p, ids, dt)
+            if dtype == "bfloat16":
+                f32 = [f.float() for f in feats]
+                roi_ref = align_plain(f32, props, image, cfg.pool_shape)
+                mask_ref = align_plain(f32, boxes, image, cfg.mask_pool_shape)
+                probs_ref = model.mrcnn(roi_ref, torch.float32)[1]
+                masks_ref = model.mrcnn_mask(mask_ref, ids, torch.float32)
+        tag = f"e2e threshold 0 {dtype}"
+        if not torch.equal(props_p, props):
+            fail(f"{tag}: proposals differ between the NMS kernel and plain")
+        if not torch.equal(det_p, det):
+            bad = int((det_p != det).any(-1).sum())
+            fail(f"{tag}: detection rows differ between the NMS kernel and plain ({bad} rows)")
+        n_props = int((props != 0).any(-1).sum())
+        n_det = int(res.valid.sum())
+        log(f"{tag}: NMS kernel == plain on the path's own inputs: proposals ({n_props} rows), "
+            f"detections ({n_det} rows)")
+        pooled = (("ROIAlign 7x7", it["roi_pooled"], roi_p),
+                  ("ROIAlign 14x14", it["mask_pooled"], mask_p))
+        heads = (("class probs", it["mrcnn_class_probs"], probs_p),
+                 ("masks", res.masks, masks_p))
+        if dtype == "float32":
+            for name, got, want in pooled + heads:
+                if not torch.equal(got, want):
+                    fail(f"{tag}: {name} differ between kernel and plain path "
+                         f"(max |diff| {float((got - want).abs().max())})")
+            log(f"{tag}: ROIAlign 7x7 and 14x14 bit-equal, class probs and masks identical "
+                "between kernel and plain path")
+            continue
+        tol = roi_align.bf16_tolerance(feats)
+        for (name, got, want), ref in zip(pooled, (roi_ref, mask_ref)):
+            err = float((got.float() - want.float()).abs().max())
+            err_k, err_p = rms(got, ref), rms(want, ref)
+            log(f"{tag}: {name} kernel vs plain on the path's pyramid: max |diff| {err:.4g} "
+                f"<= tol {tol:.4g}; RMS from f32: kernel {err_k:.6g}, plain {err_p:.6g}")
+            if not (err <= tol and err_k <= err_p):
+                fail(f"{tag}: {name}: kernel vs plain max |diff| {err} (tol {tol}), RMS from "
+                     f"f32 kernel {err_k} vs plain {err_p}")
+        for (name, got, want), ref in zip(heads, (probs_ref, masks_ref)):
+            gap, err_k, err_p = rms(got, want), rms(got, ref), rms(want, ref)
+            log(f"{tag}: {name}: kernel vs plain path RMS {gap:.6g} <= tol {2 * err_p:.6g} "
+                f"(max |diff| {float((got - want).abs().max()):.4g}); RMS from the f32 "
+                f"heads: kernel path {err_k:.6g}, plain path {err_p:.6g}")
+            if not gap <= 2 * err_p:
+                fail(f"{tag}: {name}: kernel vs plain path RMS {gap} > {2 * err_p}")
+
+
+def end_to_end(device):
+    import numpy as np
+    import torch
+
+    from objectdetection_torch import convert, detector
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.models.mask_rcnn import MaskRCNN
+    from objectdetection_torch.ops import nms, roi_align
+
+    cfg = COCO_CONFIG
+    t0 = time.perf_counter()
+    params = convert.init_params(cfg, torch.Generator().manual_seed(0), device)
+    # the same tensors in a module tree, for driving single stages
+    with torch.device("meta"):
+        model = MaskRCNN(cfg).eval()
+    model.load_state_dict(params, assign=True)
+    log(f"e2e: {cfg.backbone} FPN {cfg.fpn_channels}, {cfg.num_classes} classes, "
+        f"{cfg.image_shape[0]}², {cfg.compute_dtype}; "
+        f"{sum(p.numel() for p in params.values()) / 1e6:.1f}M params "
+        f"(init {time.perf_counter() - t0:.1f} s)")
+    rng = np.random.RandomState(0)
+    mean = np.asarray(cfg.mean_pixel, np.float32)
+    h, w = cfg.image_shape[:2]
+
+    def request():
+        images = rng.uniform(0, 255, (BATCH, h, w, 3)).astype(np.float32) - mean
+        windows = np.tile(np.array([[0, 0, h, w]], np.float32), (BATCH, 1))
+        return images, windows
+
+    infer = detector.make_infer_fn(cfg)
+    warm = request()
+    t0 = time.perf_counter()
+    infer(params, *warm)
+    torch.cuda.synchronize()
+    log(f"e2e warm-up call: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    requests = [request() for _ in range(3)]
+    torch.cuda.reset_peak_memory_stats()
+    nms.launches = 0
+    roi_align.launches = 0
+    for i, (images, windows) in enumerate(requests):
+        before = (nms.launches, roi_align.launches)
+        t0 = time.perf_counter()
+        det = infer(params, images, windows)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        step = (nms.launches - before[0], roi_align.launches - before[1])
+        n = cfg.detection_post_nms_instances
+        shapes = {
+            "boxes": (BATCH, n, 4), "class_ids": (BATCH, n), "scores": (BATCH, n),
+            "valid": (BATCH, n), "masks": (BATCH, n, *cfg.mask_shape),
+        }
+        for key, shape in shapes.items():
+            t = getattr(det, key)
+            if tuple(t.shape) != shape:
+                fail(f"e2e request {i}: {key} shape {tuple(t.shape)} != {shape}")
+            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                fail(f"e2e request {i}: {key} not finite")
+        # one NMS launch per stage covers every image of the batch
+        if step[0] < 2 or step[1] < 2:
+            fail(f"e2e request {i}: kernel launches {step} (nms, roi_align); want >= 2 each")
+        log(f"e2e request {i}: {ms:.1f} ms, {int(det.valid.sum())} detections, "
+            f"launches nms {step[0]} roi_align {step[1]}")
+    launches = {"nms": nms.launches, "roi_align": roi_align.launches}
+    log(f"e2e peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    stage_breakdown(model, params, infer, *requests[0], device)
+    kernel_vs_plain(model, params, request, device)
+    return launches
+
+
+# ---------------------------------------------------------------- main
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
+    if not (ROOT / "objectdetection_torch" / "csrc").is_dir():
+        fail(f"objectdetection_torch/ not found beside {Path(__file__).name}: "
+             "run from a checkout of the repository")
+    sys.path.insert(0, str(ROOT))
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    t_start = time.perf_counter()
+
+    card = card_and_build()
+    nms_rec = nms_phase(device)
+    roi_rec = roi_phase(device)
+    launches = end_to_end(device)
+
+    for name in ("nms", "roi_align"):
+        if launches[name] == 0:
+            fail(f"the main path never launched the {name} kernel")
+    kernels = []
+    for name, rec, source, replaces in (
+        ("nms", nms_rec, "objectdetection_torch/csrc/nms.cu",
+         "objectdetection_tpu/ops/nms_pallas.py:70"),
+        ("roi_align", roi_rec, "objectdetection_torch/csrc/roi_align.cu",
+         "objectdetection_tpu/ops/roi_align_pallas.py:104"),
+    ):
+        bytes_ms, ops_ms = rec["bytes_ms"], rec["ops_ms"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": rec.get("library_ms"),
+        })
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,107 @@
+"""Isolation and device rules of the port.
+
+- The port and ``chip_smoke.py`` import neither JAX, flax nor any module of
+  ``objectdetection_tpu`` (checked in a fresh interpreter, and by a scan of
+  the sources).
+- Entry points default to the card: with no card they raise instead of
+  running on the CPU; ``device="cpu"`` runs on the CPU.
+- Unported options raise instead of falling back.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from objectdetection_torch import convert, detector
+from objectdetection_torch.config import SHAPES_CONFIG
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "objectdetection_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "objectdetection_tpu")
+
+
+def port_modules():
+    mods = []
+    for path in sorted(PACKAGE.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys, importlib\n"
+        f"for m in {port_modules()!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_sources_import_nothing_of_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_default_device_is_the_card():
+    cfg = SHAPES_CONFIG.replace(compute_dtype="float32")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        detector.make_infer_fn(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.init_params(cfg)
+    assert detector.make_infer_fn(cfg, device="cpu") is not None
+
+
+def test_quantized_inference_raises_not_implemented():
+    cfg = SHAPES_CONFIG.replace(quantized_inference=True)
+    with pytest.raises(NotImplementedError, match="A11"):
+        detector.make_infer_fn(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        convert.flax_to_state_dict({"params": {}, "quant": {}})
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
