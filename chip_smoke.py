@@ -17,9 +17,21 @@ and prints no result:
    launch counters are read around that run; then where a batch's time goes
    (CUDA-event spans per stage, the entry points, one profiled batch); then
    runs at ``detection_min_threshold=0.0``, bf16 and f32, are held stage by
-   stage against the plain path on the card.
+   stage against the plain path on the card;
+5. the training kernels against their plain versions at the main path's
+   shapes: anchor matching (COCO anchors × 100 GT, B=2, exact) and the
+   ROIAlign gradient (7×7 and 14×14, R=200 per image, f32 and bf16, within
+   the stated bound of ``roi_align.backward_tolerance``);
+6. training at full width: COCO_CONFIG, batch 2, masks on (56×56
+   mini-masks), the same seeded weights. (a) One f32 step through the
+   kernels and through the plain path on the same batch and noise: targets
+   identical, losses equal, every gradient leaf within the stated bound.
+   (b) Five bf16 steps through ``make_train_step``, the launch counters read
+   around them: losses finite, a nonzero FPN gradient from the second-stage
+   losses alone, ms per step, device busy share, peak memory.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (launches counted on
+the training path, which runs all four kernels); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -41,8 +53,21 @@ PEAK_BF16 = 989e12
 # f32 operations of one IoU test: 2 min, 2 max, 6 sub, 3 mul, 1 add, 1 div,
 # 2 compares
 IOU_OPS = 17
+# f32 operations of one anchor-GT test: the IoU with the GT's area from
+# shared memory (4 min/max, 2 sub, 2 clamps, 1 mul, 1 add, 1 sub, 1 compare,
+# 1 div), the running per-anchor max (1 compare, 1 select) and the per-GT
+# candidate key (1 compare, 1 pack, 2 for the warp vote and select)
+MATCH_OPS = 19
 BATCH = 2
 REPS = 10  # batches per stage and entry-point timing
+TRAIN_STEPS = 5  # bf16 training steps of phase 6
+# stated bound of phase 6(a): every gradient leaf of the kernel path within
+# this share of its L2 norm of the plain path's. The forward is bit-equal (the
+# kernels equal their plain versions); only the f32 atomics of the ROIAlign
+# gradient reorder sums, by at most 2·γ(n+4, 2^-24) of the absolute sum of
+# each pyramid-gradient element, which the linear backward carries into the
+# leaves at the same order (measured worst: 1.35e-5 on an H100).
+GRAD_REL = 2e-4
 TOP = 12  # largest device kernels listed from the profiled batch
 
 
@@ -69,6 +94,27 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of everything ``fn`` launches, from
+    torch.profiler. CUDA events around back-to-back calls measure the host
+    instead where a call's enqueue outlasts its kernels (anchor matching:
+    ~0.13 ms of Python and ctypes per call around ~0.09 ms of kernels)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    if not total > 0:
+        fail("device_ms: the profiler saw no device time")
+    return total
 
 
 # ---------------------------------------------------------------- phase 1
@@ -182,7 +228,8 @@ def nms_phase(device):
             fail(f"nms {name}: kernel survivor table differs from plain ({bad} rows)")
         rec["max_abs_err"] = max(rec["max_abs_err"], float((out_k - out_p).abs().max()))
         survivors = int((out_k != 0).any(-1).sum())
-        ms = time_ms(lambda: nms.suppress(boxes, cls, thr, budget), 50)
+        ev_ms = time_ms(lambda: nms.suppress(boxes, cls, thr, budget), 50)
+        ms = device_ms(lambda: nms.suppress(boxes, cls, thr, budget))
         plain_ms = time_ms(lambda: nms.suppress_plain(boxes, cls, thr, budget), 3, warmup=1)
         rows = stop_row(out_p, nms.TILE, budget)
         bytes_ = BATCH * n * (16 + 4 + 16)
@@ -192,8 +239,8 @@ def nms_phase(device):
         rec["bytes_ms"] += bytes_ / PEAK_BYTES * 1e3
         rec["ops_ms"] += ops / PEAK_F32 * 1e3
         log(f"nms {name}: B={BATCH} N={n} thr={thr} budget={budget}: kernel == plain "
-            f"({survivors} survivors, {rows} rows resolved); kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms")
+            f"({survivors} survivors, {rows} rows resolved); kernel {ms:.4f} ms device "
+            f"({ev_ms:.4f} ms between events), plain {plain_ms:.3f} ms")
     return rec
 
 
@@ -247,7 +294,9 @@ def roi_phase(device):
         if not err <= tol:
             fail(f"roi_align {name} bf16: max |kernel - plain| {err} > {tol}")
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        ms = time_ms(lambda: roi_align.batched_multilevel_roi_align(feats16, boxes, image, crop), 50)
+        ev_ms = time_ms(
+            lambda: roi_align.batched_multilevel_roi_align(feats16, boxes, image, crop), 50)
+        ms = device_ms(lambda: roi_align.batched_multilevel_roi_align(feats16, boxes, image, crop))
         plain_ms = time_ms(
             lambda: roi_align.batched_multilevel_roi_align_plain(feats16, boxes, image, crop), 5)
         ms32 = time_ms(lambda: roi_align.batched_multilevel_roi_align(feats32, boxes, image, crop), 50)
@@ -260,8 +309,8 @@ def roi_phase(device):
         rec["bytes_ms"] += bytes_ / PEAK_BYTES * 1e3
         rec["ops_ms"] += ops / PEAK_BF16 * 1e3
         log(f"roi_align {name}: B={BATCH} R={r} {crop[0]}x{crop[1]} C={c}: f32 bit-equal; "
-            f"bf16 max |diff| {err:.3g} <= tol {tol:.3g}; kernel bf16 {ms:.4f} ms "
-            f"(f32 {ms32:.4f} ms), plain bf16 {plain_ms:.3f} ms; "
+            f"bf16 max |diff| {err:.3g} <= tol {tol:.3g}; kernel bf16 {ms:.4f} ms device "
+            f"({ev_ms:.4f} ms between events; f32 {ms32:.4f}), plain bf16 {plain_ms:.3f} ms; "
             f"bound {bytes_ / PEAK_BYTES * 1e3:.4f} ms ({bytes_ / 1e6:.1f} MB)")
     return rec
 
@@ -271,16 +320,35 @@ def roi_phase(device):
 
 @contextlib.contextmanager
 def plain_path():
-    """Route both kernel wrappers to their plain versions (for comparison)."""
-    from objectdetection_torch.ops import nms, roi_align
+    """Route every kernel wrapper to its plain version (for comparison): the
+    plain ROIAlign is differentiated by autograd, so its gradient is the
+    plain backward too."""
+    from objectdetection_torch.ops import anchor_match, nms, roi_align
 
-    saved = nms.suppress, roi_align.batched_multilevel_roi_align
+    saved = (nms.suppress, roi_align.batched_multilevel_roi_align, anchor_match.anchor_match)
     nms.suppress = nms.suppress_plain
     roi_align.batched_multilevel_roi_align = roi_align.batched_multilevel_roi_align_plain
+    anchor_match.anchor_match = anchor_match.anchor_match_plain
     try:
         yield
     finally:
-        nms.suppress, roi_align.batched_multilevel_roi_align = saved
+        (nms.suppress, roi_align.batched_multilevel_roi_align,
+         anchor_match.anchor_match) = saved
+
+
+def launch_counts():
+    from objectdetection_torch.ops import anchor_match, nms, roi_align
+
+    return {"nms": nms.launches, "roi_align": roi_align.launches,
+            "roi_align_backward": roi_align.backward_launches,
+            "anchor_match": anchor_match.launches}
+
+
+def reset_launch_counts():
+    from objectdetection_torch.ops import anchor_match, nms, roi_align
+
+    nms.launches = roi_align.launches = roi_align.backward_launches = 0
+    anchor_match.launches = 0
 
 
 def rms(a, b) -> float:
@@ -405,7 +473,7 @@ def kernel_vs_plain(model, params, request, device):
     from objectdetection_torch.layers.detection import detection_layer
     from objectdetection_torch.layers.proposals import proposal_layer
     from objectdetection_torch.models.mask_rcnn import compute_dtype
-    from objectdetection_torch.ops import nms, roi_align
+    from objectdetection_torch.ops import roi_align
 
     cfg = model.config
     image = tuple(cfg.image_shape[:2])
@@ -421,12 +489,12 @@ def kernel_vs_plain(model, params, request, device):
             feats = [it["pyramid"][f"p{i}"] for i in range(2, 6)]
             props, det = it["proposals"], it["detections"]
             boxes, ids = det[..., :4], det[..., 4].to(torch.int64)
-            before = (nms.launches, roi_align.launches)
+            before = launch_counts()
             with plain_path():
                 props_p = proposal_layer(it["rpn_class_probs"], it["rpn_bbox"], anchors, cfg0)
                 det_p = detection_layer(props, it["mrcnn_class_probs"], it["mrcnn_bbox"],
                                         norm_boxes(windows, image), cfg0)
-            if (nms.launches, roi_align.launches) != before:
+            if launch_counts() != before:
                 fail("e2e threshold 0: the plain path launched a kernel")
             roi_p = align_plain(feats, props, image, cfg.pool_shape)
             mask_p = align_plain(feats, boxes, image, cfg.mask_pool_shape)
@@ -516,8 +584,7 @@ def end_to_end(device):
 
     requests = [request() for _ in range(3)]
     torch.cuda.reset_peak_memory_stats()
-    nms.launches = 0
-    roi_align.launches = 0
+    reset_launch_counts()
     for i, (images, windows) in enumerate(requests):
         before = (nms.launches, roi_align.launches)
         t0 = time.perf_counter()
@@ -541,12 +608,345 @@ def end_to_end(device):
             fail(f"e2e request {i}: kernel launches {step} (nms, roi_align); want >= 2 each")
         log(f"e2e request {i}: {ms:.1f} ms, {int(det.valid.sum())} detections, "
             f"launches nms {step[0]} roi_align {step[1]}")
-    launches = {"nms": nms.launches, "roi_align": roi_align.launches}
+    launches = launch_counts()
     log(f"e2e peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name in ("nms", "roi_align"):
+        if launches[name] == 0:
+            fail(f"the inference path never launched the {name} kernel")
+    log(f"e2e launches over 3 requests: {launches}")
 
     stage_breakdown(model, params, infer, *requests[0], device)
     kernel_vs_plain(model, params, request, device)
+    return params
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def match_inputs(gen, anchors, g: int, device):
+    """GT boxes [B, G, 4] of realistic sizes with padding rows, duplicated
+    boxes (ties) and a share of invalid rows that still hold boxes."""
+    import torch
+
+    b = BATCH
+    y1x1 = torch.rand(b, g, 2, generator=gen) * 0.8
+    hw = 0.02 + torch.rand(b, g, 2, generator=gen) ** 2 * 0.5
+    gt = torch.cat([y1x1, (y1x1 + hw).clamp(max=1.0)], -1)
+    gt[:, 1] = gt[:, 0]  # a duplicated GT: anchor argmax ties go low
+    gt[:, 2] = anchors[1000].cpu()  # an anchor exactly
+    valid = torch.rand(b, g, generator=gen) > 0.2
+    valid[:, :3] = True
+    valid[:, g - 10:] = False
+    gt[:, g - 10:] = 0.0  # zero padding rows
+    return gt.to(device).contiguous(), valid.to(device).contiguous()
+
+
+def match_phase(device):
+    import torch
+
+    from objectdetection_torch.anchors import config_anchors
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.ops import anchor_match
+
+    cfg = COCO_CONFIG
+    anchors = torch.from_numpy(config_anchors(cfg)).to(device)
+    a, g = anchors.shape[0], cfg.max_gt_objects
+    gt, valid = match_inputs(torch.Generator().manual_seed(5), anchors, g, device)
+    got = anchor_match.anchor_match(anchors, gt, valid)
+    want = anchor_match.anchor_match_plain(anchors, gt, valid)
+    torch.cuda.synchronize()
+    for name, k, p in zip(got._fields, got, want):
+        if not torch.equal(k, p):
+            bad = int((k != p).sum())
+            fail(f"anchor_match: kernel {name} differs from plain in {bad} entries")
+    ev_ms = time_ms(lambda: anchor_match.anchor_match(anchors, gt, valid), 50)
+    ms = device_ms(lambda: anchor_match.anchor_match(anchors, gt, valid))
+    plain_ms = time_ms(lambda: anchor_match.anchor_match_plain(anchors, gt, valid), 3, warmup=1)
+    tests = a * int(valid.sum())  # the kernel skips invalid GTs
+    bytes_ = a * 16 + gt.numel() * 4 + valid.numel() + BATCH * a * 8 + BATCH * g * 8
+    ops = tests * MATCH_OPS
+    rec = {"ms": ms, "plain_ms": plain_ms, "bytes_ms": bytes_ / PEAK_BYTES * 1e3,
+           "ops_ms": ops / PEAK_F32 * 1e3, "max_abs_err": 0.0, "library_ms": None}
+    log(f"anchor_match: B={BATCH} A={a} G={g} ({int(valid.sum())} valid): kernel == plain "
+        f"(maxima bit-equal, argmaxes equal); kernel {ms:.4f} ms device ({ev_ms:.4f} ms "
+        f"between events), plain {plain_ms:.3f} ms; "
+        f"bound {max(rec['bytes_ms'], rec['ops_ms']):.4f} ms ({ops / 1e9:.3f} GFLOP f32, "
+        f"{bytes_ / 1e6:.1f} MB)")
+    return rec
+
+
+def roi_backward_phase(device):
+    """ROIAlign gradient kernel against the plain backward (autograd of the
+    plain version) at the training path's shapes: 7×7 and 14×14 stages, 200
+    ROIs per image (train_rois_per_image), f32 and bf16."""
+    import torch
+
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.ops import roi_align
+
+    cfg = COCO_CONFIG
+    gen = torch.Generator().manual_seed(6)
+    image = tuple(cfg.image_shape[:2])
+    c = cfg.fpn_channels
+    r = cfg.train_rois_per_image
+    shapes = [(BATCH, h, w, c) for h, w in cfg.feature_shapes()[:4]]
+    rec = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0,
+           "library_ms": None}
+    for name, crop in (("box", cfg.pool_shape), ("mask", cfg.mask_pool_shape)):
+        boxes = roi_boxes(gen, r, device)
+        g32 = torch.randn(BATCH, r, *crop, c, generator=gen).to(device)
+        for dtype in (torch.float32, torch.bfloat16):
+            grad_out = g32.to(dtype)
+            got = roi_align.roi_align_backward(grad_out, boxes, shapes, image)
+            want = roi_align.roi_align_backward_plain(grad_out, boxes, shapes, image)
+            tol = roi_align.backward_tolerance(grad_out, boxes, shapes, image)
+            torch.cuda.synchronize()
+            err = max(float((k.double() - p.double()).abs().max()) for k, p in zip(got, want))
+            over = sum(int(((k.double() - p.double()).abs() > t).sum())
+                       for k, p, t in zip(got, want, tol))
+            if over:
+                fail(f"roi_align_backward {name} {dtype}: {over} elements beyond the stated "
+                     f"bound (max |kernel - plain| {err})")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            extra = ""
+            if dtype == torch.bfloat16:
+                # the same bf16 gradient values, summed in f32 with f32 weights
+                ref = roi_align.roi_align_backward_plain(grad_out.float(), boxes, shapes, image)
+                tol32 = roi_align.backward_tolerance(grad_out, boxes, shapes, image,
+                                                     against_f32=True)
+                err_k = max(float((k.double() - f.double()).abs().max()) for k, f in zip(got, ref))
+                err_p = max(float((p.double() - f.double()).abs().max()) for p, f in zip(want, ref))
+                over = sum(int(((k.double() - f.double()).abs() > t).sum())
+                           for k, f, t in zip(got, ref, tol32))
+                if over:
+                    fail(f"roi_align_backward {name} bf16: {over} elements beyond the bound "
+                         f"from the f32 backward (max {err_k})")
+                extra = f"; from the f32 backward: kernel {err_k:.4g}, plain {err_p:.4g}"
+            log(f"roi_align_backward {name} {str(dtype)[6:]}: B={BATCH} R={r} "
+                f"{crop[0]}x{crop[1]} C={c}: max |kernel - plain| {err:.4g}, within the "
+                f"stated bound{extra}")
+        ev_ms = time_ms(lambda: roi_align.roi_align_backward(grad_out, boxes, shapes, image), 20)
+        ms = device_ms(lambda: roi_align.roi_align_backward(grad_out, boxes, shapes, image))
+        ms32 = time_ms(lambda: roi_align.roi_align_backward(g32, boxes, shapes, image), 20)
+        plain_ms = time_ms(
+            lambda: roi_align.roi_align_backward_plain(grad_out, boxes, shapes, image), 3,
+            warmup=1)
+        outs = grad_out.numel()
+        dense = sum(BATCH * h * w * c for _, h, w, _ in shapes)
+        bytes_ = outs * 2 + boxes.numel() * 4 + dense * 2
+        ops = outs * 8  # 4 products + 4 sums per grad_out element
+        rec["ms"] += ms
+        rec["plain_ms"] += plain_ms
+        rec["bytes_ms"] += bytes_ / PEAK_BYTES * 1e3
+        rec["ops_ms"] += ops / PEAK_BF16 * 1e3
+        log(f"roi_align_backward {name}: kernel bf16 {ms:.4f} ms device ({ev_ms:.4f} ms "
+            f"between events; f32 {ms32:.4f}), plain "
+            f"bf16 {plain_ms:.3f} ms; bound {bytes_ / PEAK_BYTES * 1e3:.4f} ms "
+            f"({bytes_ / 1e6:.1f} MB: grad_out read, dense bf16 pyramid gradient written)")
+    return rec
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def train_batch(cfg, device):
+    """Seeded training batch: up to 100 GT per image with padding rows,
+    axis-aligned boxes, mini-masks of filled rectangles, uniform pixels minus
+    the mean."""
+    import numpy as np
+    import torch
+
+    from objectdetection_torch.detector import TrainBatch
+
+    rng = np.random.RandomState(11)
+    h, w = cfg.image_shape[:2]
+    g = cfg.max_gt_objects
+    mh, mw = cfg.mini_mask_shape
+    images = rng.uniform(0, 255, (BATCH, h, w, 3)).astype(np.float32) - np.asarray(
+        cfg.mean_pixel, np.float32)
+    y1x1 = rng.uniform(0.0, 0.85, (BATCH, g, 2))
+    hw = rng.uniform(0.02, 0.4, (BATCH, g, 2))
+    boxes = np.concatenate([y1x1, np.minimum(y1x1 + hw, 1.0)], -1).astype(np.float32)
+    cls = rng.randint(1, cfg.num_classes, (BATCH, g)).astype(np.int32)
+    masks = np.zeros((BATCH, g, mh, mw), np.float32)
+    for i, n in enumerate((g - 13, g // 2)):
+        cls[i, n:] = 0
+        boxes[i, n:] = 0.0
+        for j in range(n):
+            y0, x0 = rng.randint(0, mh // 3, 2)
+            y1, x1 = rng.randint(2 * mh // 3, mh + 1, 2)
+            masks[i, j, y0:y1, x0:x1] = 1.0
+    return TrainBatch(*(torch.from_numpy(x).to(device) for x in (images, boxes, cls, masks)))
+
+
+def losses_and_grads(params, stats, batch, cfg, noise):
+    import torch
+
+    from objectdetection_torch import detector
+
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    parts, targets = detector.compute_losses({**leaves, **stats}, batch, cfg, noise,
+                                             with_masks=True, return_targets=True)
+    grads = torch.autograd.grad(sum(parts.values()), list(leaves.values()), allow_unused=True)
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(leaves.items(), grads)}
+    return {k: v.detach() for k, v in parts.items()}, targets, grads
+
+
+def train_f32_vs_plain(params, stats, batch, device):
+    """One f32 step of the training path through the kernels and through the
+    plain versions, on the same batch and noise."""
+    import torch
+
+    from objectdetection_torch import detector
+    from objectdetection_torch.config import COCO_CONFIG
+
+    cfg = COCO_CONFIG.replace(compute_dtype="float32")
+    noise = detector.draw_noise(cfg, batch, torch.Generator(device=device).manual_seed(2))
+    torch.backends.cudnn.deterministic = True  # leave only the atomics' order free
+    try:
+        t0 = time.perf_counter()
+        before = launch_counts()
+        parts_k, tgt_k, grads_k = losses_and_grads(params, stats, batch, cfg, noise)
+        torch.cuda.synchronize()
+        ms_k = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        t0 = time.perf_counter()
+        with plain_path():
+            parts_p, tgt_p, grads_p = losses_and_grads(params, stats, batch, cfg, noise)
+            torch.cuda.synchronize()
+        ms_p = (time.perf_counter() - t0) * 1e3
+        if launch_counts() != {k: before[k] + launched[k] for k in before}:
+            fail("train f32: the plain path launched a kernel")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if min(launched.values()) == 0:
+        fail(f"train f32: the kernel path missed a kernel: {launched}")
+    (rpn_k, props_k, det_k), (rpn_p, props_p, det_p) = tgt_k, tgt_p
+    for name, a, b in (("rpn target_class", rpn_k.target_class, rpn_p.target_class),
+                       ("proposals", props_k, props_p),
+                       ("sampled rois", det_k.rois, det_p.rois),
+                       ("target_class_ids", det_k.target_class_ids, det_p.target_class_ids),
+                       ("target masks", det_k.target_masks, det_p.target_masks)):
+        if not torch.equal(a, b):
+            fail(f"train f32: {name} differ between the kernel and the plain path")
+    n_pos = int(det_k.pos_mask.sum())
+    if n_pos == 0:
+        fail("train f32: no positive ROI, the second stage would get no box or mask gradient")
+    for k, v in parts_k.items():
+        ref = float(parts_p[k])
+        if not (torch.isfinite(v) and abs(float(v) - ref) <= 1e-6 * abs(ref)):
+            fail(f"train f32: {k} kernel {float(v)} vs plain {ref}")
+    worst, worst_name = 0.0, ""
+    for k, gk in grads_k.items():
+        gp = grads_p[k]
+        err = float(torch.linalg.vector_norm(gk - gp))
+        ref = float(torch.linalg.vector_norm(gp))
+        rel = err / ref if ref > 0 else (0.0 if err == 0 else float("inf"))
+        if rel > worst:
+            worst, worst_name = rel, k
+        if not rel <= GRAD_REL:
+            fail(f"train f32: gradient of {k} differs: |kernel - plain| {err} vs |plain| {ref}")
+    log(f"train f32 ({cfg.backbone} {cfg.image_shape[0]}² B={BATCH}, masks): kernel path "
+        f"{ms_k:.0f} ms, plain path "
+        f"{ms_p:.0f} ms; launches {launched}; targets identical "
+        f"({int((rpn_k.target_class != 0).sum())} RPN anchors sampled, {n_pos} positive ROIs); "
+        f"losses " + ", ".join(f"{k} {float(v):.6g}" for k, v in parts_k.items())
+        + f" (equal to plain within 1e-6); {len(grads_k)} gradient leaves within "
+        f"{GRAD_REL} relative, worst {worst:.3g} ({worst_name})")
+
+
+def train_bf16(params, stats, batch, device):
+    """Five bf16 steps through make_train_step; the launch counters are read
+    around them. Returns the launches."""
+    import torch
+
+    from objectdetection_torch import detector, losses, optim
+    from objectdetection_torch.config import COCO_CONFIG
+
+    cfg = COCO_CONFIG
+    gen = torch.Generator(device=device).manual_seed(1)
+    step = detector.make_train_step(cfg, with_masks=True)
+    state = detector.TrainState(params, stats, optim.init(params), 0)
+
+    # the FPN's gradient from the second-stage losses alone (zero if the
+    # pooled features were cut from the pyramid)
+    fpn = {k: v.detach().requires_grad_(True) for k, v in params.items() if k.startswith("fpn.")}
+    parts = detector.compute_losses({**params, **fpn, **stats}, batch, cfg, generator=gen,
+                                    with_masks=True)
+    second = parts["mrcnn_class_loss"] + parts["mrcnn_box_loss"] + parts["mask_loss"]
+    fpn_norm = float(optim.global_norm([g for g in torch.autograd.grad(
+        second, list(fpn.values()), allow_unused=True) if g is not None]))
+    if not fpn_norm > 0:
+        fail(f"train bf16: the second-stage losses give the FPN no gradient ({fpn_norm})")
+    log(f"train bf16: FPN gradient norm from the second-stage losses alone {fpn_norm:.6g}")
+    del parts, second, fpn
+
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    log(f"train bf16: first step {(time.perf_counter() - t0) * 1e3:.0f} ms (cuDNN heuristics "
+        "for the backward, lazy init)")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS)]
+    history = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        starts[i].record()
+        state, metrics = step(state, batch, gen)
+        ends[i].record()
+        history.append(metrics)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, m in enumerate(history):
+        bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
+        if bad:
+            fail(f"train bf16 step {i}: not finite: {bad}")
+        # the heads' norms may be 0 in a step without positive ROIs; the
+        # backbone and the RPN always get a gradient
+        for k in ("grad_norm/fpn", "grad_norm/rpn_model"):
+            if not float(m[k]) > 0:
+                fail(f"train bf16 step {i}: {k} is zero")
+        log(f"train bf16 step {i}: {starts[i].elapsed_time(ends[i]):.1f} ms between events; "
+            + ", ".join(f"{k} {float(v):.5g}" for k, v in m.items()))
+    if state.step != TRAIN_STEPS + 1:
+        fail(f"train bf16: state.step {state.step}")
+    if min(launches.values()) == 0:
+        fail(f"train bf16: the training path missed a kernel: {launches}")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        t1 = time.perf_counter()
+        state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t1) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    if not busy > 0:
+        fail("train bf16: the profiler saw no device time")
+    log(f"train bf16: {TRAIN_STEPS} steps, host wall {wall:.1f} ms per step; launches {launches}; "
+        f"peak memory {peak:.2f} GiB")
+    log(f"  profiled step: wall {prof_wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / prof_wall:.1f}%)")
+    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:TOP]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:80]}")
     return launches
+
+
+def training(params, device):
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.convert import split_collections
+
+    p, stats = split_collections(params)
+    batch = train_batch(COCO_CONFIG, device)
+    log(f"train batch: {int((batch.gt_class_ids > 0).sum())} GT over {BATCH} images, "
+        f"mini-masks {tuple(batch.gt_masks.shape[2:])}")
+    train_f32_vs_plain(p, stats, batch, device)
+    return train_bf16(p, stats, batch, device)
 
 
 # ---------------------------------------------------------------- main
@@ -570,17 +970,21 @@ def main() -> None:
     card = card_and_build()
     nms_rec = nms_phase(device)
     roi_rec = roi_phase(device)
-    launches = end_to_end(device)
+    params = end_to_end(device)
+    match_rec = match_phase(device)
+    back_rec = roi_backward_phase(device)
+    launches = training(params, device)
 
-    for name in ("nms", "roi_align"):
-        if launches[name] == 0:
-            fail(f"the main path never launched the {name} kernel")
     kernels = []
     for name, rec, source, replaces in (
         ("nms", nms_rec, "objectdetection_torch/csrc/nms.cu",
          "objectdetection_tpu/ops/nms_pallas.py:70"),
         ("roi_align", roi_rec, "objectdetection_torch/csrc/roi_align.cu",
          "objectdetection_tpu/ops/roi_align_pallas.py:104"),
+        ("roi_align_backward", back_rec, "objectdetection_torch/csrc/roi_align.cu",
+         "objectdetection_tpu/ops/roi_align.py:213"),
+        ("anchor_match", match_rec, "objectdetection_torch/csrc/anchor_match.cu",
+         "objectdetection_tpu/ops/anchor_match.py:47"),
     ):
         bytes_ms, ops_ms = rec["bytes_ms"], rec["ops_ms"]
         kernels.append({

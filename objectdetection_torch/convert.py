@@ -20,12 +20,20 @@ res2a_branch2a``); leaves are renamed and relaid:
 the same initializer families as the flax modules (``he_normal`` for the
 stem conv, ``lecun_normal`` for every other kernel, zero biases, BN scale 1
 except the zero-init ``bn*_branch2c``).
+
+For training, :func:`split_collections` splits a state dict as flax splits
+its variables: ``params`` (every weight and bias, and the BatchNorm
+``scale``/``bias``) train, ``batch_stats`` (BatchNorm ``mean``/``var``)
+stay frozen. :func:`train_state_from_flax` carries a JAX ``TrainState``
+across, optax's momentum trace and update count included; any tree shaped
+like ``params`` (a gradient tree too) relays out through
+:func:`flax_to_state_dict`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +41,7 @@ import torch
 from objectdetection_torch.config import DetectorConfig
 
 _COLLECTIONS = ("params", "batch_stats")
+_BATCH_STATS = ("mean", "var")  # FrozenBatchNorm leaves of the batch_stats collection
 # flax's truncated_normal variance_scaling divides the stddev by the std of
 # a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -74,6 +83,73 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
             arr = np.array(_relayout(path, np.asarray(arr, np.float32)), order="C")
             out[name] = torch.from_numpy(arr)
     return out
+
+
+def split_collections(
+    state_dict: Mapping[str, torch.Tensor],
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """State dict → (params, batch_stats), the flax collections: BatchNorm
+    ``mean``/``var`` are batch_stats, every other leaf is a param."""
+    params, stats = {}, {}
+    for name, t in state_dict.items():
+        (stats if name.rsplit(".", 1)[-1] in _BATCH_STATS else params)[name] = t
+    return params, stats
+
+
+def _find_fields(obj: Any, field: str) -> Iterator[Any]:
+    """Values of every namedtuple field named ``field`` inside ``obj``."""
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        if field in obj._fields:
+            yield getattr(obj, field)
+        for key in obj._fields:
+            if key != field:
+                yield from _find_fields(getattr(obj, key), field)
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            yield from _find_fields(v, field)
+    elif isinstance(obj, Mapping):
+        for v in obj.values():
+            yield from _find_fields(v, field)
+
+
+def _arrays_only(tree: Mapping) -> Dict:
+    """Drop the leaves that are no arrays (optax's ``MaskedNode`` of frozen
+    leaves) from a nested dict."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            sub = _arrays_only(val)
+            if sub:
+                out[key] = sub
+        elif not isinstance(val, tuple):
+            out[key] = val
+    return out
+
+
+def train_state_from_flax(state: Any, train_layers: str = "all"):
+    """A JAX ``detector.TrainState`` with numpy leaves (``jax.tree.map(
+    np.asarray, state)``) → the port's :class:`~objectdetection_torch.
+    detector.TrainState` on the CPU: params and batch_stats relaid out, the
+    momentum trace of the trained leaves, optax's update count (the step
+    where the chain keeps none) and the step."""
+    from objectdetection_torch import optim
+    from objectdetection_torch.detector import TrainState
+
+    params = flax_to_state_dict({"params": state.params})
+    stats = flax_to_state_dict({"batch_stats": state.batch_stats})
+    traces = list(_find_fields(state.opt_state, "trace"))
+    if len(traces) != 1:
+        raise ValueError(f"expected one momentum trace in the optimizer state, found {len(traces)}")
+    trace = flax_to_state_dict({"params": _arrays_only(traces[0])})
+    counts = [int(np.asarray(c)) for c in _find_fields(state.opt_state, "count")]
+    expect = {k for k in params if optim.trained(k, train_layers)}
+    if set(trace) != expect:
+        raise ValueError(f"the trace covers {len(trace)} leaves, train_layers="
+                         f"{train_layers!r} trains {len(expect)}")
+    step = int(np.asarray(state.step))
+    return TrainState(params=params, batch_stats=stats,
+                      opt_state=optim.OptState(trace=trace, count=counts[0] if counts else step),
+                      step=step)
 
 
 def resolve_device(device) -> torch.device:

@@ -29,6 +29,19 @@
 // plain version's order exactly (bit-equal). In bf16 the products and the sum
 // are taken in f32 and rounded once at the end (the plain version rounds to
 // bf16 after every op).
+//
+// The backward (`roi_align_backward_*`) is the gradient with respect to
+// P2..P5; the boxes get none, as `jax.lax.stop_gradient(boxes)` gives in
+// objectdetection_tpu/ops/roi_align.py. The JAX package has no Pallas kernel
+// for it: its gradient is XLA's autodiff of the four-gather sum. Each sample
+// scatters w * grad_out into the same four corners, with the same weights
+// (rounded to the feature type, as the forward does), by f32 atomicAdd into
+// f32 buffers that the caller zeroed; the caller casts them to the feature
+// type. What bounds it: bytes, reading grad_out once and writing the dense
+// gradient pyramid once. Same block layout as the forward (one block per
+// ROI, channel fastest), so a warp's atomics hit 32 consecutive addresses.
+// The atomics sum in an order that changes from run to run: the result is
+// within a few ulps of the plain backward, not bit-equal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,10 +52,25 @@ namespace {
 constexpr int MAX_POOL = 32;
 constexpr int THREADS = 256;
 
-struct Pyramid {
-  const void* feat[4];
+struct Levels {
   int h[4];
   int w[4];
+};
+
+struct Pyramid {
+  const void* feat[4];
+  Levels dims;
+};
+
+struct GradPyramid {
+  float* grad[4];
+  Levels dims;
+};
+
+struct RoiTables {
+  int y0[MAX_POOL], y1[MAX_POOL], x0[MAX_POOL], x1[MAX_POOL];
+  float wy[MAX_POOL], wx[MAX_POOL];
+  int level;
 };
 
 __device__ __forceinline__ float load_f(const float* p, size_t i) { return p[i]; }
@@ -79,21 +107,12 @@ __device__ __forceinline__ void axis_sample(float lo, float hi, int size, int po
   *w_out = w1;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-roi_align_kernel(Pyramid pyr, const float4* __restrict__ boxes, T* __restrict__ out,
-                 int rois_per_image, int channels, int ph, int pw,
-                 float canonical_scale, float ln2) {
-  __shared__ int s_y0[MAX_POOL], s_y1[MAX_POOL], s_x0[MAX_POOL], s_x1[MAX_POOL];
-  __shared__ float s_wy[MAX_POOL], s_wx[MAX_POOL];
-  __shared__ int s_level;
-
-  const int roi = blockIdx.x;
-  const int img = roi / rois_per_image;
-  const float4 b = boxes[roi];  // (y1, x1, y2, x2)
+// The ROI's pyramid level and its per-row / per-column sample tables, into
+// shared memory; every thread of the block calls it.
+__device__ __forceinline__ void roi_tables(const Levels& dims, float4 b, int ph, int pw,
+                                           float canonical_scale, float ln2, RoiTables& s) {
   const float bh = __fsub_rn(b.z, b.x);
   const float bw = __fsub_rn(b.w, b.y);
-
   if (threadIdx.x == 0) {
     const float area = __fmul_rn(bh, bw);
     int lvl = 2;
@@ -102,34 +121,46 @@ roi_align_kernel(Pyramid pyr, const float4* __restrict__ boxes, T* __restrict__ 
       const float l2 = __fdiv_rn(logf(scale), ln2);
       lvl = 4 + (int)rintf(l2);
     }
-    s_level = min(max(lvl, 2), 5) - 2;
+    s.level = min(max(lvl, 2), 5) - 2;
   }
   __syncthreads();
-  const int li = s_level;
-  const int H = pyr.h[li], W = pyr.w[li];
+  const int li = s.level;
   const int t = threadIdx.x;
-  if (t < ph) axis_sample(b.x, b.z, H, ph, t, &s_y0[t], &s_y1[t], &s_wy[t]);
+  if (t < ph) axis_sample(b.x, b.z, dims.h[li], ph, t, &s.y0[t], &s.y1[t], &s.wy[t]);
   if (t >= MAX_POOL && t - MAX_POOL < pw) {
     const int j = t - MAX_POOL;
-    axis_sample(b.y, b.w, W, pw, j, &s_x0[j], &s_x1[j], &s_wx[j]);
+    axis_sample(b.y, b.w, dims.w[li], pw, j, &s.x0[j], &s.x1[j], &s.wx[j]);
   }
   __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+roi_align_kernel(Pyramid pyr, const float4* __restrict__ boxes, T* __restrict__ out,
+                 int rois_per_image, int channels, int ph, int pw,
+                 float canonical_scale, float ln2) {
+  __shared__ RoiTables s;
+  const int roi = blockIdx.x;
+  const int img = roi / rois_per_image;
+  roi_tables(pyr.dims, boxes[roi], ph, pw, canonical_scale, ln2, s);
+  const int li = s.level;
+  const int H = pyr.dims.h[li], W = pyr.dims.w[li];
 
   const T* feat = static_cast<const T*>(pyr.feat[li]) + (size_t)img * H * W * channels;
   T* dst = out + (size_t)roi * ph * pw * channels;
   const int total = ph * pw * channels;
-  for (int idx = t; idx < total; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < total; idx += THREADS) {
     const int c = idx % channels;
-    const int s = idx / channels;
-    const int py = s / pw, px = s % pw;
-    const float wy = s_wy[py], wx = s_wx[px];
+    const int smp = idx / channels;
+    const int py = smp / pw, px = smp % pw;
+    const float wy = s.wy[py], wx = s.wx[px];
     const float owy = __fsub_rn(1.0f, wy), owx = __fsub_rn(1.0f, wx);
     const float w00 = to_feat(__fmul_rn(owy, owx), feat);
     const float w01 = to_feat(__fmul_rn(owy, wx), feat);
     const float w10 = to_feat(__fmul_rn(wy, owx), feat);
     const float w11 = to_feat(__fmul_rn(wy, wx), feat);
-    const size_t r0 = (size_t)s_y0[py] * W, r1 = (size_t)s_y1[py] * W;
-    const size_t c0 = (size_t)s_x0[px], c1 = (size_t)s_x1[px];
+    const size_t r0 = (size_t)s.y0[py] * W, r1 = (size_t)s.y1[py] * W;
+    const size_t c0 = (size_t)s.x0[px], c1 = (size_t)s.x1[px];
     const float g00 = load_f(feat, (r0 + c0) * channels + c);
     const float g01 = load_f(feat, (r0 + c1) * channels + c);
     const float g10 = load_f(feat, (r1 + c0) * channels + c);
@@ -142,6 +173,56 @@ roi_align_kernel(Pyramid pyr, const float4* __restrict__ boxes, T* __restrict__ 
   }
 }
 
+__device__ __forceinline__ void scatter(float* p, float v) {
+  if (v != 0.0f) atomicAdd(p, v);  // adding zero changes no bit of the sum
+}
+
+// grad_out [batch, rois, ph, pw, C] in the feature type T; grads: f32 per
+// level, zeroed by the caller.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+roi_align_backward_kernel(GradPyramid gp, const float4* __restrict__ boxes,
+                          const T* __restrict__ grad_out, int rois_per_image, int channels,
+                          int ph, int pw, float canonical_scale, float ln2) {
+  __shared__ RoiTables s;
+  const int roi = blockIdx.x;
+  const int img = roi / rois_per_image;
+  roi_tables(gp.dims, boxes[roi], ph, pw, canonical_scale, ln2, s);
+  const int li = s.level;
+  const int H = gp.dims.h[li], W = gp.dims.w[li];
+
+  float* grad = gp.grad[li] + (size_t)img * H * W * channels;
+  const T* src = grad_out + (size_t)roi * ph * pw * channels;
+  const int total = ph * pw * channels;
+  for (int idx = threadIdx.x; idx < total; idx += THREADS) {
+    const int c = idx % channels;
+    const int smp = idx / channels;
+    const int py = smp / pw, px = smp % pw;
+    const float wy = s.wy[py], wx = s.wx[px];
+    const float owy = __fsub_rn(1.0f, wy), owx = __fsub_rn(1.0f, wx);
+    const float w00 = to_feat(__fmul_rn(owy, owx), src);
+    const float w01 = to_feat(__fmul_rn(owy, wx), src);
+    const float w10 = to_feat(__fmul_rn(wy, owx), src);
+    const float w11 = to_feat(__fmul_rn(wy, wx), src);
+    const size_t r0 = (size_t)s.y0[py] * W, r1 = (size_t)s.y1[py] * W;
+    const size_t c0 = (size_t)s.x0[px], c1 = (size_t)s.x1[px];
+    const float g = load_f(src, idx);
+    scatter(&grad[(r0 + c0) * channels + c], __fmul_rn(g, w00));
+    scatter(&grad[(r0 + c1) * channels + c], __fmul_rn(g, w01));
+    scatter(&grad[(r1 + c0) * channels + c], __fmul_rn(g, w10));
+    scatter(&grad[(r1 + c1) * channels + c], __fmul_rn(g, w11));
+  }
+}
+
+Levels make_levels(const int* hw) {
+  Levels d;
+  for (int l = 0; l < 4; ++l) {
+    d.h[l] = hw[2 * l];
+    d.w[l] = hw[2 * l + 1];
+  }
+  return d;
+}
+
 template <typename T>
 int launch(const void* const* feats, const int* hw, const void* boxes, void* out, int batch,
            int rois, int channels, int ph, int pw, float canonical_scale, float ln2,
@@ -149,13 +230,25 @@ int launch(const void* const* feats, const int* hw, const void* boxes, void* out
   if (batch <= 0 || rois <= 0) return 0;
   if (ph < 1 || pw < 1 || ph > MAX_POOL || pw > MAX_POOL) return (int)cudaErrorInvalidValue;
   Pyramid pyr;
-  for (int l = 0; l < 4; ++l) {
-    pyr.feat[l] = feats[l];
-    pyr.h[l] = hw[2 * l];
-    pyr.w[l] = hw[2 * l + 1];
-  }
+  for (int l = 0; l < 4; ++l) pyr.feat[l] = feats[l];
+  pyr.dims = make_levels(hw);
   roi_align_kernel<T><<<batch * rois, THREADS, 0, (cudaStream_t)stream>>>(
       pyr, (const float4*)boxes, (T*)out, rois, channels, ph, pw, canonical_scale, ln2);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_backward(const void* grad_out, const int* hw, const void* boxes,
+                    float* const* grads, int batch, int rois, int channels, int ph, int pw,
+                    float canonical_scale, float ln2, void* stream) {
+  if (batch <= 0 || rois <= 0) return 0;
+  if (ph < 1 || pw < 1 || ph > MAX_POOL || pw > MAX_POOL) return (int)cudaErrorInvalidValue;
+  GradPyramid gp;
+  for (int l = 0; l < 4; ++l) gp.grad[l] = grads[l];
+  gp.dims = make_levels(hw);
+  roi_align_backward_kernel<T><<<batch * rois, THREADS, 0, (cudaStream_t)stream>>>(
+      gp, (const float4*)boxes, (const T*)grad_out, rois, channels, ph, pw, canonical_scale,
+      ln2);
   return (int)cudaGetLastError();
 }
 
@@ -180,4 +273,25 @@ extern "C" int roi_align_bf16(const void* p2, const void* p3, const void* p4, co
   const void* feats[4] = {p2, p3, p4, p5};
   return launch<__nv_bfloat16>(feats, hw, boxes, out, batch, rois, channels, ph, pw,
                                canonical_scale, ln2, stream);
+}
+
+// grad_out: [batch, rois, ph, pw, channels] in the feature type; hw and boxes
+// as for the forward; g2..g5: f32 gradient buffers [batch, h_l, w_l, channels],
+// zeroed by the caller, which accumulate the result.
+extern "C" int roi_align_backward_f32(const void* grad_out, const int* hw, const void* boxes,
+                                      float* g2, float* g3, float* g4, float* g5, int batch,
+                                      int rois, int channels, int ph, int pw,
+                                      float canonical_scale, float ln2, void* stream) {
+  float* grads[4] = {g2, g3, g4, g5};
+  return launch_backward<float>(grad_out, hw, boxes, grads, batch, rois, channels, ph, pw,
+                                canonical_scale, ln2, stream);
+}
+
+extern "C" int roi_align_backward_bf16(const void* grad_out, const int* hw, const void* boxes,
+                                       float* g2, float* g3, float* g4, float* g5, int batch,
+                                       int rois, int channels, int ph, int pw,
+                                       float canonical_scale, float ln2, void* stream) {
+  float* grads[4] = {g2, g3, g4, g5};
+  return launch_backward<__nv_bfloat16>(grad_out, hw, boxes, grads, batch, rois, channels, ph,
+                                        pw, canonical_scale, ln2, stream);
 }

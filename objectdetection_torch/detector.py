@@ -1,32 +1,50 @@
-"""End-to-end inference API of the port.
+"""End-to-end API of the port: inference and the training step.
 
-Port of the inference half of ``objectdetection_tpu.detector``:
-:class:`Detections`, :func:`forward_inference` and :func:`make_infer_fn`.
+Port of ``objectdetection_tpu.detector``. Inference: :class:`Detections`,
+:func:`forward_inference` and :func:`make_infer_fn`. Training:
+:class:`TrainBatch`, :func:`compute_losses`, :class:`TrainState`,
+:func:`create_train_state`, :func:`train_step` and :func:`make_train_step`.
 Parameters are a state dict (from :func:`objectdetection_torch.convert.
 init_params` or :func:`~objectdetection_torch.convert.flax_to_state_dict`);
 the network is a module built once per config on the ``meta`` device and
 called with those tensors through ``torch.func.functional_call``, so
-``forward_inference`` is a function of (params, images, windows) as in JAX.
+``forward_inference`` is a function of (params, images, windows) and
+``compute_losses`` of (params, batch, noise), as in JAX. Training splits the
+state dict into the flax collections (``params`` train, BatchNorm
+``batch_stats`` do not) and takes gradients with ``torch.autograd.grad``.
+
+Target sampling draws uniform noise (:class:`TrainNoise`); a step draws it
+from the ``torch.Generator`` it is given unless the caller passes it, which
+is how the tests feed both frameworks the same numbers.
 
 Entry points run on the card unless the caller asks for the CPU:
-``make_infer_fn(config)`` means ``device="cuda"`` and raises when there is no
-card.
+``make_infer_fn(config)`` and ``make_train_step(config)`` mean
+``device="cuda"`` and raise when there is no card.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import functional_call
 
+from objectdetection_torch import losses as losses_lib
+from objectdetection_torch import optim
+from objectdetection_torch.anchors import config_anchors
 from objectdetection_torch.config import DetectorConfig
-from objectdetection_torch.convert import init_params, resolve_device
+from objectdetection_torch.convert import init_params, resolve_device, split_collections
+from objectdetection_torch.layers.proposals import proposal_layer
+from objectdetection_torch.layers.targets import (
+    Noise, detection_targets, rpn_targets, uniform_noise,
+)
 from objectdetection_torch.models.mask_rcnn import MaskRCNN
 
-__all__ = ["Detections", "build_model", "check_supported", "forward_inference",
-           "init_params", "make_infer_fn"]
+__all__ = ["Detections", "TrainBatch", "TrainNoise", "TrainState", "build_model",
+           "check_supported", "compute_losses", "create_train_state", "draw_noise",
+           "forward_inference", "init_params", "make_infer_fn", "make_train_step",
+           "train_step"]
 
 
 class Detections(NamedTuple):
@@ -106,3 +124,191 @@ def make_infer_fn(config: DetectorConfig, with_masks: bool = True, device="cuda"
             return forward_inference(params, images, windows, config, with_masks)
 
     return infer_fn
+
+
+# --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+
+
+class TrainBatch(NamedTuple):
+    """One batch of training data, zero-padded to static shapes."""
+
+    images: torch.Tensor  # [B, H, W, 3] molded
+    gt_boxes: torch.Tensor  # [B, G, 4] normalized
+    gt_class_ids: torch.Tensor  # [B, G] int, 0 = padding
+    gt_masks: Optional[torch.Tensor] = None  # [B, G, H, W] or mini-masks [B, G, mh, mw]
+    active_class_ids: Optional[torch.Tensor] = None  # [B, num_classes]
+
+
+class TrainNoise(NamedTuple):
+    """Uniform [0, 1) noise of one step's target sampling, (positives,
+    negatives) pairs: ``rpn`` [B, A] each, ``detection`` [B, P] each, with P
+    the proposals per image (the training budget, plus G with
+    ``train_append_gt``)."""
+
+    rpn: Noise
+    detection: Noise
+
+
+class TrainState(NamedTuple):
+    params: Dict[str, torch.Tensor]  # the flax ``params`` collection, trained
+    batch_stats: Dict[str, torch.Tensor]  # BatchNorm mean/var, frozen
+    opt_state: optim.OptState
+    step: int
+
+
+def draw_noise(config: DetectorConfig, batch: TrainBatch,
+               generator: Optional[torch.Generator] = None) -> TrainNoise:
+    """The noise a step needs, drawn from ``generator``."""
+    b, g = batch.gt_boxes.shape[:2]
+    p = config.post_nms_rois_training + (g if config.train_append_gt else 0)
+    dev = batch.images.device
+    return TrainNoise(rpn=uniform_noise((b, config.num_anchors()), generator, dev),
+                      detection=uniform_noise((b, p), generator, dev))
+
+
+class _Bound(MaskRCNN):
+    """MaskRCNN whose forward runs ``fn(module, *args)``: one functional_call
+    binds the parameters for every method ``fn`` calls (flax's
+    ``apply(..., method=...)``)."""
+
+    def forward(self, fn, *args):
+        return fn(self, *args)
+
+
+@functools.lru_cache(maxsize=16)
+def _bound_model(config: DetectorConfig) -> _Bound:
+    with torch.device("meta"):
+        return _Bound(config).eval()
+
+
+def _losses(model: MaskRCNN, batch: TrainBatch, config: DetectorConfig,
+            noise: TrainNoise, with_masks: bool):
+    cfg = config
+    b = batch.images.shape[0]
+    dev = batch.images.device
+    anchors = torch.from_numpy(config_anchors(cfg)).to(dev)
+    feats, rpn_logits, rpn_probs, rpn_deltas = model.extract(batch.images)
+    gt_valid = batch.gt_class_ids > 0
+    masks = batch.gt_masks if with_masks else None
+    # targets and proposals carry no gradient: proposals are inputs of the
+    # second stage (JAX stops the gradient there), the RPN learns from its
+    # own losses
+    with torch.no_grad():
+        rpn_tgt = rpn_targets(anchors, batch.gt_boxes, gt_valid, cfg, noise.rpn)
+        proposals = proposal_layer(rpn_probs, rpn_deltas, anchors, cfg, training=True)
+        if cfg.train_append_gt:
+            # [B, P+G, 4]: padded GT rows are zero, so they stay invalid
+            gt_rows = torch.where(gt_valid[..., None], batch.gt_boxes,
+                                  torch.zeros_like(batch.gt_boxes))
+            proposals = torch.cat([proposals, gt_rows], dim=1)
+        mini = (masks is not None and cfg.use_mini_mask
+                and tuple(masks.shape[2:]) == tuple(cfg.mini_mask_shape))
+        det_tgt = detection_targets(proposals, batch.gt_boxes, batch.gt_class_ids, cfg,
+                                    noise.detection, gt_masks=masks, masks_are_mini=mini)
+    cls_logits, _, bbox = model.classify_rois(feats, det_tgt.rois)
+    active = batch.active_class_ids
+    if active is None:
+        active = torch.ones((b, cfg.num_classes), dtype=torch.int32, device=dev)
+    out = {
+        "rpn_class_loss": losses_lib.rpn_class_loss(rpn_tgt.target_class, rpn_logits),
+        "rpn_box_loss": losses_lib.rpn_box_loss(rpn_tgt.target_deltas, rpn_deltas,
+                                                rpn_tgt.target_class),
+        "mrcnn_class_loss": losses_lib.mrcnn_class_loss(det_tgt.target_class_ids, cls_logits,
+                                                        active.to(torch.int64)),
+        "mrcnn_box_loss": losses_lib.mrcnn_box_loss(
+            det_tgt.target_deltas, bbox, det_tgt.target_class_ids,
+            compat_reference=cfg.compat_reference_box_loss),
+    }
+    if masks is not None:
+        mask_probs = model.predict_masks(feats, det_tgt.rois)  # every class
+        out["mask_loss"] = losses_lib.mask_loss(det_tgt.target_masks, mask_probs,
+                                                det_tgt.target_class_ids)
+    return out, (rpn_tgt, proposals, det_tgt)
+
+
+def compute_losses(
+    params: Dict[str, torch.Tensor],
+    batch: TrainBatch,
+    config: DetectorConfig,
+    noise: Optional[TrainNoise] = None,
+    generator: Optional[torch.Generator] = None,
+    with_masks: bool = False,
+    return_targets: bool = False,
+):
+    """Forward pass + target assignment + every loss.
+
+    params: the whole state dict (params and batch_stats) on the batch's
+    device. ``noise`` defaults to a draw from ``generator``. Returns the dict
+    of losses, plus ``(RPNTargets, proposals, DetectionTargets)`` with
+    ``return_targets``. Masks enter with ``with_masks`` and ``batch.gt_masks``.
+    """
+    check_supported(config)
+    if noise is None:
+        noise = draw_noise(config, batch, generator)
+    with_masks = with_masks and batch.gt_masks is not None
+    out, targets = functional_call(_bound_model(config), params,
+                                   (_losses, batch, config, noise, with_masks), strict=True)
+    return (out, targets) if return_targets else out
+
+
+def create_train_state(config: DetectorConfig, generator: Optional[torch.Generator] = None,
+                       train_layers: str = "all", device="cuda") -> TrainState:
+    """Random weights from ``init_params``, split into the flax collections,
+    with a fresh optimizer state."""
+    params, stats = split_collections(init_params(config, generator, device))
+    return TrainState(params, stats, optim.init(params, train_layers), 0)
+
+
+def train_step(
+    state: TrainState,
+    batch: TrainBatch,
+    generator: Optional[torch.Generator],
+    config: DetectorConfig,
+    with_masks: bool = False,
+    train_layers: str = "all",
+    noise: Optional[TrainNoise] = None,
+) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One SGD step: (new state, metrics). Metrics: each loss,
+    ``total_loss`` and ``grad_norm/{fpn,rpn_model,mrcnn,mrcnn_mask}``, the
+    norm of each head's gradient before clipping."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+    with torch.enable_grad():
+        parts = compute_losses({**leaves, **state.batch_stats}, batch, config, noise,
+                               generator, with_masks)
+        loss = losses_lib.total_loss(parts)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(leaves.items(), grads)}
+    params = {k: v.detach() for k, v in state.params.items()}
+    updates, opt_state = optim.update(grads, state.opt_state, params, config, train_layers)
+    metrics = {k: v.detach() for k, v in parts.items()}
+    metrics["total_loss"] = loss.detach()
+    for head in dict.fromkeys(k.split(".")[0] for k in grads):
+        metrics[f"grad_norm/{head}"] = optim.global_norm(
+            [g for k, g in grads.items() if k.split(".")[0] == head])
+    new_state = TrainState(optim.apply_updates(params, updates), state.batch_stats,
+                           opt_state, state.step + 1)
+    return new_state, metrics
+
+
+def make_train_step(config: DetectorConfig, with_masks: bool = False,
+                    train_layers: str = "all", device="cuda"):
+    """Returns ``step(state, batch, generator, noise=None) -> (state,
+    metrics)`` on ``device``. The batch's arrays (numpy or tensors) are moved
+    there; the state must already live there."""
+    check_supported(config)
+    dev = resolve_device(device)
+
+    def step(state: TrainState, batch: TrainBatch, generator=None,
+             noise: Optional[TrainNoise] = None):
+        wrong = [k for k, v in state.params.items() if v.device.type != dev.type]
+        if wrong:
+            raise ValueError(f"the train state must live on {dev}; {wrong[0]} is on "
+                             f"{state.params[wrong[0]].device}")
+        batch = TrainBatch(*(None if x is None else torch.as_tensor(x, device=dev)
+                             for x in batch))
+        return train_step(state, batch, generator, config, with_masks, train_layers, noise)
+
+    return step

@@ -94,9 +94,10 @@ def box_area(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
-    """Dense pairwise IoU: [A, 4] × [B, 4] → [A, B]."""
-    a = boxes_a[:, None, :]
-    b = boxes_b[None, :, :]
+    """Dense pairwise IoU: [..., N, 4] × [..., M, 4] → [..., N, M] (leading
+    dims broadcast, e.g. shared anchors [A, 4] × per-image GT [B, G, 4])."""
+    a = boxes_a[..., :, None, :]
+    b = boxes_b[..., None, :, :]
     inter_y1 = torch.maximum(a[..., 0], b[..., 0])
     inter_x1 = torch.maximum(a[..., 1], b[..., 1])
     inter_y2 = torch.minimum(a[..., 2], b[..., 2])
@@ -104,7 +105,7 @@ def iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     inter = torch.clamp(inter_y2 - inter_y1, min=0.0) * torch.clamp(
         inter_x2 - inter_x1, min=0.0
     )
-    area_a = box_area(boxes_a)[:, None]
-    area_b = box_area(boxes_b)[None, :]
+    area_a = box_area(boxes_a)[..., :, None]
+    area_b = box_area(boxes_b)[..., None, :]
     union = area_a + area_b - inter
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))

@@ -1,11 +1,13 @@
 """Proposal layer: RPN outputs + anchors → top proposals.
 
-Port of ``objectdetection_tpu.layers.proposals.proposal_layer`` (inference):
-top-k pre-NMS anchors by foreground score → decode with the stddev-scaled
-deltas → clip to [0, 1] → per-image NMS → zero-pad to the post-NMS budget.
+Port of ``objectdetection_tpu.layers.proposals.proposal_layer``: top-k
+pre-NMS anchors by foreground score → decode with the stddev-scaled deltas →
+clip to [0, 1] → per-image NMS → zero-pad to the post-NMS budget (the
+training or the inference budget).
 
 Top-k is a stable descending sort: ties go to the lower index, as with
-``lax.top_k``. ``use_approx_topk`` is treated as exact.
+``lax.top_k``. ``use_approx_topk`` is treated as exact, which training
+requires anyway.
 """
 
 from __future__ import annotations
@@ -28,10 +30,12 @@ def proposal_layer(
     rpn_deltas: torch.Tensor,
     anchors: torch.Tensor,
     config: DetectorConfig,
+    training: bool = False,
 ) -> torch.Tensor:
     """rpn_probs [B, A, 2], rpn_deltas [B, A, 4], anchors [A, 4] →
-    [B, P, 4] normalized proposals, zero-padded (P = post-NMS budget)."""
-    post_nms = config.post_nms_rois_inference
+    [B, P, 4] normalized proposals, zero-padded (P = the post-NMS budget of
+    training or inference)."""
+    post_nms = config.post_nms_rois_training if training else config.post_nms_rois_inference
     b, a = rpn_probs.shape[:2]
     pre_nms = min(config.pre_nms_rois_count, a)
     stddev = torch.tensor(config.rpn_bbox_stddev, dtype=torch.float32,

@@ -1,9 +1,12 @@
-"""Multilevel ROIAlign (crop_and_resize): plain PyTorch version and CUDA kernel.
+"""Multilevel ROIAlign (crop_and_resize): plain PyTorch version and CUDA kernels.
 
-Port of ``objectdetection_tpu.ops.roi_align`` (``roi_levels``,
-``batched_multilevel_roi_align``) and of the Pallas kernel
+Port of ``objectdetection_tpu.ops.roi_align`` (``crop_and_resize``,
+``roi_levels``, ``batched_multilevel_roi_align``) and of the Pallas kernel
 ``objectdetection_tpu/ops/roi_align_pallas.py`` ``_kernel``, whose CUDA
-counterpart is ``csrc/roi_align.cu``.
+counterpart is ``csrc/roi_align.cu``. The same source holds the gradient with
+respect to the pyramid, a kernel of its own (the JAX package leaves it to
+XLA's autodiff of the four-gather sum); the boxes get no gradient, as
+``jax.lax.stop_gradient(boxes)`` gives.
 
 Bilinear semantics follow ``tf.image.crop_and_resize(method="bilinear")``:
 for an output grid of size P, sample i of a box lies at
@@ -12,21 +15,24 @@ normalized, corner-aligned coordinates). Each box's level comes from the FPN
 assignment rule; zero-area boxes pin to the finest level.
 
 :func:`batched_multilevel_roi_align` launches the kernel for CUDA features
-and runs :func:`batched_multilevel_roi_align_plain` for CPU features.
+(through an autograd Function whose backward launches the gradient kernel)
+and runs :func:`batched_multilevel_roi_align_plain`, which autograd
+differentiates, for CPU features.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from objectdetection_torch.ops import cuda_build
 
-launches = 0  # kernel launches (never counts the plain version)
+launches = 0  # forward kernel launches (never counts the plain version)
+backward_launches = 0  # gradient kernel launches
 
 LN2 = float(np.log(np.float32(2.0)).astype(np.float32))
 _MAX_POOL = 32
@@ -71,6 +77,49 @@ def _bilinear_weights_1d(coord: torch.Tensor, size: torch.Tensor):
     i1 = torch.minimum(i0 + 1, size - 1)
     i0 = torch.minimum(torch.clamp(i0, min=0), size - 1)
     return i0, i1, w1
+
+
+def crop_and_resize(image: torch.Tensor, boxes: torch.Tensor, crop_size) -> torch.Tensor:
+    """Bilinear crop from one map: [..., H, W, C] × [..., R, 4] → [..., R, ph, pw, C].
+
+    Single-level ``tf.image.crop_and_resize`` (normalized corner-aligned
+    boxes), leading dims shared by image and boxes. Sample points outside the
+    map are 0, which matters for boxes beyond [0, 1] (mini-mask crops).
+    """
+    *lead, h, w, c = image.shape
+    r = boxes.shape[-2]
+    ph, pw = crop_size
+    y1, x1, y2, x2 = boxes.to(torch.float32).unbind(-1)
+
+    def grid(p, lo, hi, size):
+        steps = torch.arange(p, dtype=torch.float32, device=boxes.device)
+        sm1 = _f32(size - 1, boxes)
+        if p > 1:
+            return lo[..., None] * sm1 + steps * ((hi - lo)[..., None] * sm1 / _f32(p - 1, boxes))
+        return 0.5 * (lo + hi)[..., None] * sm1
+
+    ys = grid(ph, y1, y2, h)  # [..., R, ph]
+    xs = grid(pw, x1, x2, w)  # [..., R, pw]
+    size_h = torch.tensor(h, device=boxes.device)
+    size_w = torch.tensor(w, device=boxes.device)
+    y0i, y1i, wy = _bilinear_weights_1d(ys, size_h)
+    x0i, x1i, wx = _bilinear_weights_1d(xs, size_w)
+    flat = image.reshape(*lead, h * w, c)
+
+    def take(yi, xi):
+        # samples outside the map read a clamped row and are zeroed below
+        yi, xi = yi.clamp(0, h - 1), xi.clamp(0, w - 1)
+        idx = (yi[..., :, None] * w + xi[..., None, :]).reshape(*lead, r * ph * pw, 1)
+        return torch.gather(flat, -2, idx.expand(*lead, r * ph * pw, c)).reshape(
+            *lead, r, ph, pw, c)
+
+    wx_, wy_ = wx[..., None, :, None], wy[..., :, None, None]
+    top = take(y0i, x0i) * (1 - wx_) + take(y0i, x1i) * wx_
+    bot = take(y1i, x0i) * (1 - wx_) + take(y1i, x1i) * wx_
+    out = top * (1 - wy_) + bot * wy_
+    inside = (((ys >= 0) & (ys <= h - 1))[..., :, None]
+              & ((xs >= 0) & (xs <= w - 1))[..., None, :])
+    return torch.where(inside[..., None], out, torch.zeros_like(out))
 
 
 def _corners(level_hw, boxes, image_shape, crop_size):
@@ -159,32 +208,35 @@ def batched_multilevel_roi_align_plain(
     return out.reshape(b, r, *crop_size, c)
 
 
-def batched_multilevel_roi_align(
-    features: Sequence[torch.Tensor],
-    boxes: torch.Tensor,
-    image_shape: Tuple[int, int],
-    crop_size: Tuple[int, int],
-) -> torch.Tensor:
-    """Pyramid ROIAlign: P2..P5 [B, H_l, W_l, C] (f32 or bf16) × boxes
-    [B, R, 4] f32 → [B, R, ph, pw, C] in the feature dtype."""
-    features = list(features)
-    if features[0].device.type == "cpu":
-        return batched_multilevel_roi_align_plain(features, boxes, image_shape, crop_size)
-    if features[0].device.type != "cuda":
-        raise ValueError(f"roi_align: unsupported device {features[0].device}")
-    if len(features) != 4:
+def _check_pyramid(shapes, dtypes, devices, boxes, crop_size):
+    """Raise on what the kernels do not take: 4 levels [B, H_l, W_l, C] of one
+    dtype (f32 or bf16) on the boxes' device, boxes [B, R, 4], crop <= 32."""
+    if len(shapes) != 4:
         raise ValueError("roi_align kernel: expects exactly the 4 levels P2..P5")
-    dtype = features[0].dtype
+    dtype = dtypes[0]
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"roi_align kernel: unsupported dtype {dtype}")
     b, r, four = boxes.shape
-    c = features[0].shape[-1]
-    for f in features:
-        if f.dtype != dtype or f.shape[0] != b or f.shape[-1] != c or f.device != boxes.device:
+    c = shapes[0][-1]
+    for shape, dt, dev in zip(shapes, dtypes, devices):
+        if len(shape) != 4 or dt != dtype or shape[0] != b or shape[-1] != c or dev != boxes.device:
             raise ValueError("roi_align kernel: levels disagree in dtype, batch, channels or device")
     ph, pw = crop_size
     if four != 4 or not (1 <= ph <= _MAX_POOL and 1 <= pw <= _MAX_POOL):
         raise ValueError(f"roi_align kernel: bad boxes {boxes.shape} or crop {crop_size}")
+
+
+def _level_dims(shapes):
+    return (ctypes.c_int * 8)(*[d for shape in shapes for d in shape[1:3]])
+
+
+def _forward_kernel(features, boxes, image_shape, crop_size) -> torch.Tensor:
+    _check_pyramid([f.shape for f in features], [f.dtype for f in features],
+                   [f.device for f in features], boxes, crop_size)
+    dtype = features[0].dtype
+    b, r = boxes.shape[:2]
+    c = features[0].shape[-1]
+    ph, pw = crop_size
     feats = [f.contiguous() for f in features]  # NHWC rows, channel fastest
     boxes = boxes.to(torch.float32).contiguous()
     out = torch.empty((b, r, ph, pw, c), dtype=dtype, device=boxes.device)
@@ -199,15 +251,109 @@ def batched_multilevel_roi_align(
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    hw = (ctypes.c_int * 8)(*[d for f in feats for d in f.shape[1:3]])
     scale = _canonical_scale(float(image_shape[0] * image_shape[1]))
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     with torch.cuda.device(boxes.device):
-        status = fn(*[f.data_ptr() for f in feats], hw, boxes.data_ptr(), out.data_ptr(),
-                    b, r, c, ph, pw, scale, LN2, stream)
+        status = fn(*[f.data_ptr() for f in feats], _level_dims([f.shape for f in feats]),
+                    boxes.data_ptr(), out.data_ptr(), b, r, c, ph, pw, scale, LN2, stream)
     cuda_build.check(status, "roi_align")
     launches += 1
     return out
+
+
+def roi_align_backward(
+    grad_out: torch.Tensor,
+    boxes: torch.Tensor,
+    feature_shapes: Sequence[Tuple[int, ...]],
+    image_shape: Tuple[int, int],
+) -> List[torch.Tensor]:
+    """Gradient of :func:`batched_multilevel_roi_align` with respect to
+    P2..P5, by the CUDA kernel: grad_out [B, R, ph, pw, C] (f32 or bf16) →
+    four [B, H_l, W_l, C] tensors in grad_out's dtype. The kernel accumulates
+    in f32 (atomics); a bf16 result is rounded once from that sum."""
+    if grad_out.device.type != "cuda":
+        raise ValueError(f"roi_align_backward kernel: unsupported device {grad_out.device}")
+    dtype = grad_out.dtype
+    b, r, ph, pw, c = grad_out.shape
+    shapes = [tuple(s) for s in feature_shapes]
+    dev = grad_out.device
+    _check_pyramid(shapes, [dtype] * len(shapes), [dev] * len(shapes), boxes, (ph, pw))
+    if any(s[-1] != c for s in shapes):
+        raise ValueError(f"roi_align_backward: grad_out channels {c} != levels' {shapes}")
+    grads = [torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes]
+    if b == 0 or r == 0:
+        return [g.to(dtype) for g in grads]
+    g_out = grad_out.contiguous()
+    boxes = boxes.to(torch.float32).contiguous()
+    global backward_launches
+    lib = cuda_build.load("roi_align")
+    fn = lib.roi_align_backward_f32 if dtype == torch.float32 else lib.roi_align_backward_bf16
+    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)] + [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    scale = _canonical_scale(float(image_shape[0] * image_shape[1]))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        status = fn(g_out.data_ptr(), _level_dims(shapes), boxes.data_ptr(),
+                    *[g.data_ptr() for g in grads], b, r, c, ph, pw, scale, LN2, stream)
+    cuda_build.check(status, "roi_align_backward")
+    backward_launches += 1
+    return grads if dtype == torch.float32 else [g.to(dtype) for g in grads]
+
+
+def roi_align_backward_plain(
+    grad_out: torch.Tensor,
+    boxes: torch.Tensor,
+    feature_shapes: Sequence[Tuple[int, ...]],
+    image_shape: Tuple[int, int],
+) -> List[torch.Tensor]:
+    """Plain version of :func:`roi_align_backward`: autograd of
+    :func:`batched_multilevel_roi_align_plain` (the result does not depend on
+    the feature values, so zeros of the right shapes stand in for them)."""
+    crop = tuple(grad_out.shape[2:4])
+    with torch.enable_grad():
+        feats = [torch.zeros(s, dtype=grad_out.dtype, device=grad_out.device,
+                             requires_grad=True) for s in feature_shapes]
+        out = batched_multilevel_roi_align_plain(feats, boxes, image_shape, crop)
+        return list(torch.autograd.grad(out, feats, grad_out))
+
+
+class _RoIAlign(torch.autograd.Function):
+    """The forward kernel, differentiable in the features by the backward
+    kernel; the boxes get no gradient."""
+
+    @staticmethod
+    def forward(ctx, boxes, image_shape, crop_size, *features):
+        ctx.save_for_backward(boxes)
+        ctx.shapes = [f.shape for f in features]
+        ctx.image_shape = image_shape
+        return _forward_kernel(list(features), boxes, image_shape, crop_size)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (boxes,) = ctx.saved_tensors
+        grads = roi_align_backward(grad_out, boxes, ctx.shapes, ctx.image_shape)
+        return (None, None, None, *grads)
+
+
+def batched_multilevel_roi_align(
+    features: Sequence[torch.Tensor],
+    boxes: torch.Tensor,
+    image_shape: Tuple[int, int],
+    crop_size: Tuple[int, int],
+) -> torch.Tensor:
+    """Pyramid ROIAlign: P2..P5 [B, H_l, W_l, C] (f32 or bf16) × boxes
+    [B, R, 4] f32 → [B, R, ph, pw, C] in the feature dtype. Differentiable in
+    the features on every device (never in the boxes)."""
+    features = list(features)
+    if features[0].device.type == "cpu":
+        return batched_multilevel_roi_align_plain(features, boxes.detach(), image_shape,
+                                                  crop_size)
+    if features[0].device.type != "cuda":
+        raise ValueError(f"roi_align: unsupported device {features[0].device}")
+    return _RoIAlign.apply(boxes.detach(), tuple(image_shape), tuple(crop_size), *features)
 
 
 def bf16_tolerance(features: Sequence[torch.Tensor]) -> float:
@@ -221,3 +367,57 @@ def bf16_tolerance(features: Sequence[torch.Tensor]) -> float:
     """
     m = max(float(f.detach().abs().max()) for f in features)
     return math.ldexp(m, -5)
+
+
+def _gamma(k: torch.Tensor, u: float) -> torch.Tensor:
+    """Higham's bound k·u / (1 - k·u) on the relative error of a k-term float
+    sum (inf where k·u >= 1)."""
+    ku = k.to(torch.float64) * u
+    return torch.where(ku < 1, ku / (1 - ku), torch.full_like(ku, math.inf))
+
+
+def backward_tolerance(
+    grad_out: torch.Tensor,
+    boxes: torch.Tensor,
+    feature_shapes: Sequence[Tuple[int, ...]],
+    image_shape: Tuple[int, int],
+    against_f32: bool = False,
+) -> List[torch.Tensor]:
+    """Stated elementwise bound on the gradient kernel's error, per level.
+
+    Every gradient element is a sum of n products g·w (n: the samples whose
+    nonzero-weight corner lands on its row) whose absolute sum is S (the
+    plain backward of |grad_out| in f64). Both sides form the same exact sum
+    with the same weights (rounded to the feature type):
+
+    - against :func:`roi_align_backward_plain` (``against_f32=False``): the
+      kernel sums in f32 and rounds once; the plain version rounds each
+      product and accumulates in the feature type, four corner groups then
+      added, so |kernel - plain| <= γ(n + 6, u)·S with u = 2^-8 in bf16 and
+      2·γ(n + 4, 2^-24)·S in f32;
+    - against the plain backward run in f32 on the same grad_out, with f32
+      weights (``against_f32=True``, meaningful for bf16): the weights differ
+      by one bf16 rounding and the kernel's result by one more, so
+      |kernel - ref| <= (2^-7 + γ(2n + 8, 2^-24))·S.
+    """
+    shapes = [tuple(sh) for sh in feature_shapes]
+    crop = tuple(grad_out.shape[2:4])
+    s_abs = roi_align_backward_plain(grad_out.detach().abs().to(torch.float64), boxes, shapes,
+                                     image_shape)
+    corners = _corners([sh[1:3] for sh in shapes], boxes, image_shape, crop)
+    rows = sum(sh[0] * sh[1] * sh[2] for sh in shapes)
+    count = torch.zeros(rows, dtype=torch.int64, device=boxes.device)
+    for r, w in corners:
+        count.index_add_(0, r[w != 0], torch.ones_like(r[w != 0]))
+    if against_f32:
+        gamma = 2.0 ** -7 + _gamma(2 * count + 8, 2.0 ** -24)
+    elif grad_out.dtype == torch.bfloat16:
+        gamma = _gamma(count + 6, 2.0 ** -8)
+    else:
+        gamma = 2 * _gamma(count + 4, 2.0 ** -24)
+    out, start = [], 0
+    for sh, s in zip(shapes, s_abs):
+        n = sh[0] * sh[1] * sh[2]
+        out.append(gamma[start:start + n].reshape(*sh[:3], 1) * s)
+        start += n
+    return out

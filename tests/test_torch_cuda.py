@@ -7,14 +7,18 @@ conftest imports JAX, which the port and these tests do not need).
 
 NMS survivor tables are held exactly; ROIAlign is held bit-equal in f32 and
 within ``roi_align.bf16_tolerance`` in bf16 (the kernel rounds once where the
-plain version rounds after every op).
+plain version rounds after every op). The anchor-match kernel is held exactly
+(maxima bit-equal, argmaxes equal). The ROIAlign gradient kernel sums with
+f32 atomics, so it is held elementwise within
+``roi_align.backward_tolerance`` of the plain backward (autograd of the plain
+version), and in bf16 also within its bound of the f32 backward.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from objectdetection_torch.ops import nms, roi_align
+from objectdetection_torch.ops import anchor_match, nms, roi_align
 
 pytestmark = pytest.mark.cuda
 
@@ -67,3 +71,68 @@ def test_roi_align_kernel_matches_plain(cuda, dtype):
             err = float((got.float() - want.float()).abs().max())
             assert err <= roi_align.bf16_tolerance(feats)
 
+
+
+def test_anchor_match_kernel_matches_plain(cuda):
+    rng = np.random.RandomState(1)
+    ctr = rng.uniform(0.0, 1.0, (20000, 2))
+    hw = rng.uniform(0.01, 0.4, (20000, 2))
+    anchors = torch.tensor(np.concatenate([ctr - hw / 2, ctr + hw / 2], -1), dtype=torch.float32)
+    anchors[777] = anchors[5]  # duplicated anchors: ties go to the lower index
+    gt = anchors[rng.randint(0, 20000, (3, 70))] * 0.9 + 0.05
+    gt[:, 1] = gt[:, 0]  # duplicated GT
+    gt[:, 2] = anchors[5]
+    valid = torch.tensor(rng.rand(3, 70) > 0.2)
+    valid[2] = False
+    anchors, gt, valid = anchors.to(cuda), gt.to(cuda), valid.to(cuda)
+    before = anchor_match.launches
+    got = anchor_match.anchor_match(anchors, gt, valid)
+    assert anchor_match.launches == before + 1
+    want = anchor_match.anchor_match_plain(anchors, gt, valid)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got.gt_argmax[0, 2]) == 5 and int(got.anchor_argmax[0, 5]) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_kernel_matches_plain(cuda, dtype):
+    gen = torch.Generator().manual_seed(3)
+    shapes = [(2, s, s, 64) for s in (64, 32, 16, 8)]
+    y1x1 = torch.rand(2, 300, 2, generator=gen) * 0.8
+    boxes = torch.cat([y1x1, (y1x1 + torch.rand(2, 300, 2, generator=gen)).clamp(max=1)], -1)
+    boxes[:, :20] = 0.0
+    boxes = boxes.to(cuda)
+    for crop in ((7, 7), (14, 14)):
+        grad_out = torch.randn(2, 300, *crop, 64, generator=gen).to(cuda, dtype)
+        before = roi_align.backward_launches
+        got = roi_align.roi_align_backward(grad_out, boxes, shapes, (256, 256))
+        assert roi_align.backward_launches == before + 1
+        want = roi_align.roi_align_backward_plain(grad_out, boxes, shapes, (256, 256))
+        tol = roi_align.backward_tolerance(grad_out, boxes, shapes, (256, 256))
+        for g, w, t in zip(got, want, tol):
+            assert g.dtype == dtype and g.shape == w.shape
+            assert bool(((g.double() - w.double()).abs() <= t).all())
+        if dtype == torch.bfloat16:
+            ref = roi_align.roi_align_backward_plain(grad_out.float(), boxes, shapes, (256, 256))
+            tol = roi_align.backward_tolerance(grad_out, boxes, shapes, (256, 256),
+                                               against_f32=True)
+            for g, r, t in zip(got, ref, tol):
+                assert bool(((g.double() - r.double()).abs() <= t).all())
+
+
+def test_roi_align_output_carries_the_feature_gradient(cuda):
+    # the kernel's output is differentiable in the features, through the
+    # gradient kernel (a detached output would silently cut the FPN's gradient)
+    gen = torch.Generator().manual_seed(4)
+    feats = [torch.randn(1, s, s, 32, generator=gen).to(cuda).requires_grad_(True)
+             for s in (32, 16, 8, 4)]
+    boxes = torch.tensor([[[0.1, 0.1, 0.6, 0.7], [0.0, 0.0, 1.0, 1.0]]], device=cuda)
+    out = roi_align.batched_multilevel_roi_align(feats, boxes, (128, 128), (7, 7))
+    assert out.requires_grad and out.grad_fn is not None
+    before = roi_align.backward_launches
+    grads = torch.autograd.grad(out.square().sum(), feats, allow_unused=True)
+    assert roi_align.backward_launches == before + 1
+    assert any(g is not None and bool(g.abs().sum() > 0) for g in grads)
+    with torch.no_grad():
+        assert not roi_align.batched_multilevel_roi_align(feats, boxes, (128, 128),
+                                                          (7, 7)).requires_grad
