@@ -72,7 +72,6 @@ def test_roi_align_kernel_matches_plain(cuda, dtype):
             assert err <= roi_align.bf16_tolerance(feats)
 
 
-
 def test_anchor_match_kernel_matches_plain(cuda):
     rng = np.random.RandomState(1)
     ctr = rng.uniform(0.0, 1.0, (20000, 2))
