@@ -28,11 +28,28 @@ and prints no result:
    identical, losses equal, every gradient leaf within the stated bound.
    (b) Five bf16 steps through ``make_train_step``, the launch counters read
    around them: losses finite, a nonzero FPN gradient from the second-stage
-   losses alone, ms per step, device busy share, peak memory.
+   losses alone, ms per step, device busy share, peak memory;
+7. int8 serving (``quantized_inference``): (a) the fused int8 bottleneck
+   kernel at the four ResNet stage shapes of a 1024² batch of 2, bit-equal
+   to its plain version; (b) ROIAlign's int8 epilogues at the box and mask
+   stages (bf16 in → int8 out, int8 in per channel and per tensor → int8
+   out, int8 in → bf16 out), bit-equal; (c) two configurations, int8-default
+   (``bench.py``'s recipe: per-channel act scales, percentile-90
+   calibration, frozen weights) and int8-fused (per-tensor scales,
+   ``fused_bottleneck``), each calibrated on the card from the seeded weights
+   with every BatchNorm drawn from a seed, frozen, and answering 3 requests
+   through ``make_infer_fn``; (d) each against the plain path on the same
+   frozen weights and batch: identical detections and masks; (e) int8-fused
+   against the same scales unfused, in f32 compute, block by block (each of
+   the 29 identity blocks fused on the unfused stream's own input): within 2
+   steps, under 1e-3 of the codes more than 1 (the chained C2–C5 drift, in
+   f32 and bf16, printed); (f) int8 against the bf16 float path on the same
+   weights, printed, not gated.
 
 The line before the last is the kernel table as JSON (launches counted on
-the training path, which runs all four kernels); the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+the path that runs each kernel: the training path for the four of phases
+2–6, the int8 serving paths for the fused block and the int8 ROIAlign); the
+last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +67,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12  # int8 tensor-core operations/s
 # f32 operations of one IoU test: 2 min, 2 max, 6 sub, 3 mul, 1 add, 1 div,
 # 2 compares
 IOU_OPS = 17
@@ -69,6 +87,13 @@ TRAIN_STEPS = 5  # bf16 training steps of phase 6
 # leaves at the same order (measured worst: 1.35e-5 on an H100).
 GRAD_REL = 2e-4
 TOP = 12  # largest device kernels listed from the profiled batch
+TRAIN_KERNELS = ("nms", "roi_align", "roi_align_backward", "anchor_match")
+# the ResNet stages at 1024² (H, W, C3, C1) and their identity blocks in R101
+STAGES = ((256, 256, 256, 64), (128, 128, 512, 128), (64, 64, 1024, 256), (32, 32, 2048, 512))
+STAGE_BLOCKS = (2, 3, 22, 2)
+# the stated bound of phase 7(e), in f32 compute: fused and unfused blocks fold
+# the same f32 scales in other orders (tests/test_fused_block.py:178-180)
+FUSED_STEPS, FUSED_SHARE = 2, 1e-3
 
 
 def fail(msg: str) -> None:
@@ -323,32 +348,35 @@ def plain_path():
     """Route every kernel wrapper to its plain version (for comparison): the
     plain ROIAlign is differentiated by autograd, so its gradient is the
     plain backward too."""
-    from objectdetection_torch.ops import anchor_match, nms, roi_align
+    from objectdetection_torch.ops import anchor_match, fused_block, nms, roi_align
 
-    saved = (nms.suppress, roi_align.batched_multilevel_roi_align, anchor_match.anchor_match)
+    saved = (nms.suppress, roi_align.batched_multilevel_roi_align, anchor_match.anchor_match,
+             fused_block.fused_identity_block_int8)
     nms.suppress = nms.suppress_plain
     roi_align.batched_multilevel_roi_align = roi_align.batched_multilevel_roi_align_plain
     anchor_match.anchor_match = anchor_match.anchor_match_plain
+    fused_block.fused_identity_block_int8 = fused_block.fused_identity_block_int8_plain
     try:
         yield
     finally:
-        (nms.suppress, roi_align.batched_multilevel_roi_align,
-         anchor_match.anchor_match) = saved
+        (nms.suppress, roi_align.batched_multilevel_roi_align, anchor_match.anchor_match,
+         fused_block.fused_identity_block_int8) = saved
 
 
 def launch_counts():
-    from objectdetection_torch.ops import anchor_match, nms, roi_align
+    from objectdetection_torch.ops import anchor_match, fused_block, nms, roi_align
 
     return {"nms": nms.launches, "roi_align": roi_align.launches,
             "roi_align_backward": roi_align.backward_launches,
-            "anchor_match": anchor_match.launches}
+            "anchor_match": anchor_match.launches,
+            "roi_align_int8": roi_align.int8_launches, "fused_block": fused_block.launches}
 
 
 def reset_launch_counts():
-    from objectdetection_torch.ops import anchor_match, nms, roi_align
+    from objectdetection_torch.ops import anchor_match, fused_block, nms, roi_align
 
     nms.launches = roi_align.launches = roi_align.backward_launches = 0
-    anchor_match.launches = 0
+    anchor_match.launches = roi_align.int8_launches = fused_block.launches = 0
 
 
 def rms(a, b) -> float:
@@ -820,7 +848,7 @@ def train_f32_vs_plain(params, stats, batch, device):
             fail("train f32: the plain path launched a kernel")
     finally:
         torch.backends.cudnn.deterministic = False
-    if min(launched.values()) == 0:
+    if min(launched[k] for k in TRAIN_KERNELS) == 0:
         fail(f"train f32: the kernel path missed a kernel: {launched}")
     (rpn_k, props_k, det_k), (rpn_p, props_p, det_p) = tgt_k, tgt_p
     for name, a, b in (("rpn target_class", rpn_k.target_class, rpn_p.target_class),
@@ -915,7 +943,7 @@ def train_bf16(params, stats, batch, device):
             + ", ".join(f"{k} {float(v):.5g}" for k, v in m.items()))
     if state.step != TRAIN_STEPS + 1:
         fail(f"train bf16: state.step {state.step}")
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in TRAIN_KERNELS) == 0:
         fail(f"train bf16: the training path missed a kernel: {launches}")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -941,12 +969,397 @@ def training(params, device):
     from objectdetection_torch.config import COCO_CONFIG
     from objectdetection_torch.convert import split_collections
 
-    p, stats = split_collections(params)
+    p, stats, _ = split_collections(params)
     batch = train_batch(COCO_CONFIG, device)
     log(f"train batch: {int((batch.gt_class_ids > 0).sum())} GT over {BATCH} images, "
         f"mini-masks {tuple(batch.gt_masks.shape[2:])}")
     train_f32_vs_plain(p, stats, batch, device)
     return train_bf16(p, stats, batch, device)
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def block_case(gen, h: int, w: int, c3: int, c1: int, device):
+    """Random int8 stream and kernels with every affine nonzero (the inputs
+    of tests/test_fused_block.py's make_case at a stage's shape, B=2)."""
+    import torch
+
+    k = lambda *s: torch.randint(-127, 128, s, generator=gen, dtype=torch.int8).to(device)
+    v = lambda n, lo=0.5, hi=1.5: (lo + (hi - lo) * torch.rand(n, generator=gen)).to(device)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    x8 = torch.randint(-128, 128, (BATCH, h, w, c3), generator=gen, dtype=torch.int8).to(device)
+    return (x8, f(3.0), k(1, 1, c3, c1), k(3, 3, c1, c1), k(1, 1, c1, c3),
+            v(c1) * 0.01, v(c1) * 0.002, v(c3) * 0.01,
+            v(c1, -0.2, 0.2), v(c1, -0.2, 0.2), v(c3, -0.2, 0.2),
+            (v(c1), v(c1, -0.3, 0.3)), (v(c1), v(c1, -0.3, 0.3)), (v(c3), v(c3, -0.3, 0.3)),
+            f(4.0), f(5.0), f(6.0))
+
+
+def fused_block_phase(device):
+    """7(a): the fused block kernel at the four stage shapes, bit-equal to
+    its plain version; per batch, each stage's time counts once per identity
+    block of that stage in R101 (29 launches)."""
+    import torch
+
+    from objectdetection_torch.ops import fused_block
+
+    gen = torch.Generator().manual_seed(7)
+    rec = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0,
+           "library_ms": None}
+    for (h, w, c3, c1), n in zip(STAGES, STAGE_BLOCKS):
+        args = block_case(gen, h, w, c3, c1, device)
+        got = fused_block.fused_identity_block_int8(*args)
+        want = fused_block.fused_identity_block_int8_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            fail(f"fused_block {h}x{w}x{c3}/{c1}: kernel differs from plain in {bad} codes "
+                 f"(max {int((got.int() - want.int()).abs().max())} steps)")
+        nonzero = float((want != 0).float().mean())
+        ev_ms = time_ms(lambda: fused_block.fused_identity_block_int8(*args), 20)
+        ms = device_ms(lambda: fused_block.fused_identity_block_int8(*args))
+        plain_ms = time_ms(lambda: fused_block.fused_identity_block_int8_plain(*args), 3,
+                           warmup=1)
+        ops, bytes_ = fused_block.block_bound(BATCH, h, w, c3, c1)
+        b_ms, o_ms = bytes_ / PEAK_BYTES * 1e3, ops / PEAK_INT8 * 1e3
+        rec["ms"] += n * ms
+        rec["plain_ms"] += n * plain_ms
+        rec["bytes_ms"] += n * b_ms
+        rec["ops_ms"] += n * o_ms
+        rec.setdefault("bound_ms", 0.0)
+        rec["bound_ms"] += n * max(b_ms, o_ms)
+        log(f"fused_block B={BATCH} {h}x{w} C3={c3} C1={c1} (x{n} per batch): kernel == plain "
+            f"({100 * nonzero:.1f}% nonzero codes); kernel {ms:.4f} ms device ({ev_ms:.4f} ms "
+            f"between events), plain {plain_ms:.3f} ms; bound {max(b_ms, o_ms):.4f} ms "
+            f"({ops / 1e9:.2f} GOP int8: {o_ms:.4f} ms, {bytes_ / 1e6:.1f} MB: {b_ms:.4f} ms)")
+    log(f"fused_block per batch (29 blocks): kernel {rec['ms']:.3f} ms, plain "
+        f"{rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.4f} ms")
+    return rec
+
+
+def roi_int8_phase(device):
+    """7(b): ROIAlign's int8 epilogues at the main path's shapes, each
+    variant bit-equal to its plain version. The kernel line's time is the
+    int8-default route (int8 P-levels, per-channel in_scale, int8 out) at
+    both stages."""
+    import torch
+
+    from objectdetection_torch import quant
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.ops import roi_align
+
+    cfg = COCO_CONFIG
+    gen = torch.Generator().manual_seed(8)
+    image = tuple(cfg.image_shape[:2])
+    c = cfg.fpn_channels
+    shapes = cfg.feature_shapes()[:4]
+    f32 = [torch.randn(BATCH, h, w, c, generator=gen) for h, w in shapes]
+    s_ch = (torch.rand(c, generator=gen) * 2 + 3.0).to(device)
+    s_sc = torch.tensor(4.5, device=device)
+    feats16 = [f.to(device, torch.bfloat16) for f in f32]
+    q_ch = [quant.quantize_act(f.to(device), s_ch) for f in f32]
+    q_sc = [quant.quantize_act(f.to(device), s_sc) for f in f32]
+    rec = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0,
+           "library_ms": None}
+    for name, r, crop in (("box", 1000, cfg.pool_shape), ("mask", 100, cfg.mask_pool_shape)):
+        boxes = roi_boxes(gen, r, device)
+        s_out = (torch.rand(*crop, c, generator=gen) * 2 + 3.0).to(device)
+        variants = (
+            ("bf16 in, int8 out", feats16, dict(out_quant=s_out)),
+            ("int8 in per channel, int8 out", q_ch, dict(out_quant=s_out, in_scale=s_ch)),
+            ("int8 in per tensor, int8 out", q_sc, dict(out_quant=s_out, in_scale=s_sc)),
+            ("int8 in per channel, bf16 out", q_ch, dict(in_scale=s_ch)),
+        )
+        for vname, feats, kw in variants:
+            got = roi_align.batched_multilevel_roi_align(feats, boxes, image, crop, **kw)
+            want = roi_align.batched_multilevel_roi_align_plain(feats, boxes, image, crop, **kw)
+            torch.cuda.synchronize()
+            if not (got.dtype == want.dtype and torch.equal(got, want)):
+                fail(f"roi_align int8 {name} {vname}: kernel not bit-equal to plain")
+            ms = device_ms(lambda: roi_align.batched_multilevel_roi_align(
+                feats, boxes, image, crop, **kw))
+            log(f"roi_align int8 {name} B={BATCH} R={r} {crop[0]}x{crop[1]} {vname}: "
+                f"kernel == plain; {ms:.4f} ms device")
+            if vname == "int8 in per channel, int8 out":
+                plain_ms = time_ms(lambda: roi_align.batched_multilevel_roi_align_plain(
+                    feats, boxes, image, crop, **kw), 5)
+                rows = roi_align.touched_rows(feats, boxes, image, crop)
+                outs = BATCH * r * crop[0] * crop[1] * c
+                bytes_ = rows * c + boxes.numel() * 4 + outs + s_out.numel() * 4
+                rec["ms"] += ms
+                rec["plain_ms"] += plain_ms
+                rec["bytes_ms"] += bytes_ / PEAK_BYTES * 1e3
+                rec["ops_ms"] += outs * 8 / PEAK_F32 * 1e3  # 7 to blend + 1 for the map
+                log(f"  bound {bytes_ / PEAK_BYTES * 1e3:.4f} ms ({bytes_ / 1e6:.1f} MB), "
+                    f"plain {plain_ms:.3f} ms")
+    return rec
+
+
+def randomized_params(cfg, device):
+    """init_params seed 0, every backbone BatchNorm's scale, bias, mean and
+    var drawn from a seed (the zero-init bn*_branch2c scales would leave every
+    residual branch, and with it the fused block's three convs, out of the
+    output); the heads' BatchNorms keep their init, as in phase 4. The
+    residual branches' last scales are drawn in [0.05, 0.15]: drawn near 1,
+    each of the 33 blocks multiplies the stream by ~1.3 and the RPN's box
+    deltas overflow exp() into NaN proposals."""
+    import torch
+
+    from objectdetection_torch import convert
+
+    params = convert.init_params(cfg, torch.Generator().manual_seed(0), device)
+    gen = torch.Generator().manual_seed(9)
+    for name in sorted(params):
+        mod, _, leaf = name.rpartition(".")
+        if f"{mod}.var" not in params or not mod.startswith("fpn.resnet."):
+            continue  # not a backbone BatchNorm
+        n = params[name].shape
+        lo, hi = (0.05, 0.15) if mod.rsplit(".", 1)[-1].endswith("2c") else (0.5, 1.5)
+        draw = {"scale": lambda: lo + (hi - lo) * torch.rand(n, generator=gen),
+                "bias": lambda: 0.1 * torch.randn(n, generator=gen),
+                "mean": lambda: 0.1 * torch.randn(n, generator=gen),
+                "var": lambda: 0.5 + 1.5 * torch.rand(n, generator=gen)}[leaf]
+        params[name] = draw().to(device)
+    return params
+
+
+def backbone_codes(cfg, params, images):
+    """C2..C5 of the int8 stream: (codes, scale) per stage."""
+    import torch
+    from torch.func import functional_call
+
+    from objectdetection_torch.detector import build_model
+    from objectdetection_torch.models.mask_rcnn import compute_dtype
+
+    model = build_model(cfg)
+    sub = {k[len("fpn.resnet."):]: v for k, v in params.items() if k.startswith("fpn.resnet.")}
+    x = images.permute(0, 3, 1, 2).to(compute_dtype(cfg)).contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode():
+        return functional_call(model.fpn.resnet, sub, (x,))
+
+
+def block_by_block(cfg, params, images):
+    """{stage: (worst steps, worst share > 1 step, blocks)} of every identity
+    block that fuses, run fused on the unfused backbone's own block input."""
+    import torch
+    from torch.func import functional_call
+
+    from objectdetection_torch.detector import build_model
+    from objectdetection_torch.models.mask_rcnn import compute_dtype
+    from objectdetection_torch.ops import fused_block
+
+    model = build_model(cfg.replace(fused_bottleneck=False))
+    worst = {}
+
+    def hook(module, args, out):
+        x = args[0]
+        if module.projection or not fused_block.fused_block_supported(x[0], module.filters[0]):
+            return
+        y8, _ = module._fused(x)
+        d = (y8.int() - out[0].int()).abs()
+        stage = int(module.names[0][3])
+        steps, share, n = worst.get(stage, (0, 0.0, 0))
+        worst[stage] = (max(steps, int(d.max())), max(share, float((d > 1).float().mean())),
+                        n + 1)
+
+    resnet = model.fpn.resnet
+    handles = [resnet._modules[name].register_forward_hook(hook)
+               for names in resnet.stages for name in names]
+    sub = {k[len("fpn.resnet."):]: v for k, v in params.items() if k.startswith("fpn.resnet.")}
+    x = images.permute(0, 3, 1, 2).to(compute_dtype(cfg)).contiguous(
+        memory_format=torch.channels_last)
+    try:
+        with torch.inference_mode():
+            functional_call(resnet, sub, (x,))
+    finally:
+        for h in handles:
+            h.remove()
+    return worst
+
+
+def same_detections(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def int8_config(name, device, requests, warm):
+    """7(c)-(d): calibrate, freeze, serve 3 requests, hold the kernel path
+    against the plain path. Returns (frozen params, launches, record)."""
+    import torch
+
+    from objectdetection_torch import detector
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.quant import QUANT_LEAVES
+
+    over = ({"per_channel_acts": True} if name == "int8-default"
+            else {"per_channel_acts": False, "fused_bottleneck": True})
+    cfg = COCO_CONFIG.replace(quantized_inference=True, **over)
+    params = randomized_params(cfg, device)
+    calib = torch.as_tensor(warm[0], device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cal = detector.calibrate_variables(params, calib, cfg, batch_size=1, percentile=90)
+    frozen = detector.freeze_weights(cal)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    n_int8 = sum(v.dtype == torch.int8 for v in frozen.values())
+    infer = detector.make_infer_fn(cfg)
+    t0 = time.perf_counter()
+    infer(frozen, *warm)
+    torch.cuda.synchronize()
+    log(f"{name}: calibrated on 2 images (batch 1, percentile 90) and froze {n_int8} int8 "
+        f"kernels in {cal_s:.2f} s; warm-up request {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for i, (images, windows) in enumerate(requests):
+        t0 = time.perf_counter()
+        det = infer(frozen, images, windows)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = cfg.detection_post_nms_instances
+        for key, shape in (("boxes", (BATCH, n, 4)), ("scores", (BATCH, n)),
+                           ("masks", (BATCH, n, *cfg.mask_shape))):
+            t = getattr(det, key)
+            if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+                fail(f"{name} request {i}: {key} {tuple(t.shape)} not finite or misshapen")
+        per_image = det.valid.sum(1).tolist()
+        if min(per_image) < 1:
+            float_params = {k: v for k, v in params.items()
+                            if k.rsplit(".", 1)[-1] not in QUANT_LEAVES}
+            f_det = detector.make_infer_fn(COCO_CONFIG)(float_params, images, windows)
+            fail(f"{name} request {i}: an image has no valid detection ({per_image}; the "
+                 f"bf16 float path on the same weights: {f_det.valid.sum(1).tolist()}, top "
+                 f"scores {det.scores[:, 0].tolist()} vs {f_det.scores[:, 0].tolist()})")
+        log(f"{name} request {i}: {ms:.1f} ms, valid detections per image {per_image}")
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    need = ["nms", "roi_align_int8"] + (["fused_block"] if name == "int8-fused" else [])
+    if min(launches[k] for k in need) == 0:
+        fail(f"{name}: the serving path missed a kernel: {launches}")
+    if name == "int8-fused" and launches["fused_block"] != 29 * len(requests):
+        fail(f"{name}: {launches['fused_block']} fused blocks over {len(requests)} requests, "
+             "want 29 per batch")
+    log(f"{name}: launches over {len(requests)} requests {launches}; peak memory {peak:.2f} GiB")
+
+    images, windows = requests[0]
+    x = torch.as_tensor(images, device=device)
+    win = torch.as_tensor(windows, device=device)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        t0 = time.perf_counter()
+        infer(frozen, images, windows)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    if not busy > 0:
+        fail(f"{name}: the profiler saw no device time")
+    log(f"{name} profiled request: wall {prof_wall:.1f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / prof_wall:.1f}%)")
+    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:TOP]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:80]}")
+
+    # (d) the same frozen weights and batch through the plain versions
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.inference_mode():
+            k_det = detector.forward_inference(frozen, x, win, cfg)
+            before = launch_counts()
+            with plain_path():
+                p_det = detector.forward_inference(frozen, x, win, cfg)
+            torch.cuda.synchronize()
+            if launch_counts() != before:
+                fail(f"{name}: the plain path launched a kernel")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if not same_detections(k_det, p_det):
+        bad = {f: int((a != b).sum()) for f, a, b in zip(k_det._fields, k_det, p_det)
+               if a is not None and not torch.equal(a, b)}
+        fail(f"{name}: kernel path and plain path differ: {bad}")
+    log(f"{name}: kernel path == plain path on the same frozen weights and batch "
+        f"(boxes, class ids, scores, valid, masks identical; {int(k_det.valid.sum())} "
+        "detections)")
+    return cfg, frozen, params, {"calib_s": cal_s, "busy": busy, "wall": prof_wall,
+                                 "peak": peak, "launches": launches}
+
+
+def iou(a, b) -> float:
+    y1, x1 = max(a[0], b[0]), max(a[1], b[1])
+    y2, x2 = min(a[2], b[2]), min(a[3], b[3])
+    inter = max(y2 - y1, 0.0) * max(x2 - x1, 0.0)
+    area = lambda z: (z[2] - z[0]) * (z[3] - z[1])
+    union = area(a) + area(b) - inter
+    return inter / union if union > 0 else 0.0
+
+
+def int8_serving(device):
+    """7(c)-(f)."""
+    import numpy as np
+    import torch
+
+    from objectdetection_torch import detector
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.quant import QUANT_LEAVES
+
+    rng = np.random.RandomState(3)
+    mean = np.asarray(COCO_CONFIG.mean_pixel, np.float32)
+    h, w = COCO_CONFIG.image_shape[:2]
+
+    def request():
+        images = rng.uniform(0, 255, (BATCH, h, w, 3)).astype(np.float32) - mean
+        return images, np.tile(np.array([[0, 0, h, w]], np.float32), (BATCH, 1))
+
+    warm = request()  # also the 2 calibration images
+    requests = [request() for _ in range(3)]
+    results = {}
+    for name in ("int8-default", "int8-fused"):
+        results[name] = int8_config(name, device, requests, warm)
+
+    # (e) fused against unfused on the same frozen scales, block by block:
+    # each identity block that fuses runs fused on the unfused stream's own
+    # input, in f32 compute, where the two differ only in the order of the
+    # f32 scale folds (the setting of the stated bound). The chained C2-C5
+    # drift (22 fused blocks in a row in stage 4) is printed, not gated.
+    cfg, frozen, params, _ = results["int8-fused"]
+    x = torch.as_tensor(requests[0][0], device=device)
+    worst = block_by_block(cfg.replace(compute_dtype="float32"), frozen, x)
+    for stage, (steps, share, n) in sorted(worst.items()):
+        log(f"int8-fused f32, stage {stage}: {n} identity blocks fused on the unfused "
+            f"stream's inputs: worst {steps} steps, worst share > 1 step {share:.2e}")
+        if not (steps <= FUSED_STEPS and share < FUSED_SHARE):
+            fail(f"int8-fused stage {stage}: fused vs unfused block {steps} steps, share > 1 "
+                 f"{share} (bound {FUSED_STEPS}, {FUSED_SHARE})")
+    if sum(n for _, _, n in worst.values()) != 29:
+        fail(f"int8-fused: {worst} blocks compared, want 29")
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(compute_dtype=dtype)
+        fused = backbone_codes(c, frozen, x)
+        unfused = backbone_codes(c.replace(fused_bottleneck=False), frozen, x)
+        for i, ((a, _), (b, _)) in enumerate(zip(fused, unfused)):
+            d = (a.int() - b.int()).abs()
+            log(f"int8-fused {dtype} chained C{i + 2} vs unfused: max {int(d.max())} steps, "
+                f"share > 1 step {float((d > 1).float().mean()):.2e}, share != "
+                f"{float((d > 0).float().mean()):.2e} (not gated)")
+
+    # (f) int8 against the bf16 float path on the same weights (printed only)
+    for name in ("int8-default", "int8-fused"):
+        _, frozen, params, _ = results[name]
+        float_params = {k: v for k, v in params.items()
+                        if k.rsplit(".", 1)[-1] not in QUANT_LEAVES}
+        images, windows = requests[0]
+        with torch.inference_mode():
+            f_det = detector.make_infer_fn(COCO_CONFIG)(float_params, images, windows)
+            q_det = detector.make_infer_fn(results[name][0])(frozen, images, windows)
+        nf, nq = int(f_det.valid.sum()), int(q_det.valid.sum())
+        top = iou(f_det.boxes[0, 0].tolist(), q_det.boxes[0, 0].tolist())
+        log(f"{name} vs bf16 float (same weights): valid {nq} vs {nf}, drift {abs(nf - nq)} "
+            f"against max(3, (n_f + n_q)/50) = {max(3, (nf + nq) // 50)}; top-box IoU "
+            f"{top:.3f}; class ids of the top box {int(q_det.class_ids[0, 0])} vs "
+            f"{int(f_det.class_ids[0, 0])} (not gated: random heads saturate)")
+    return {k: v[3] for k, v in results.items()}
 
 
 # ---------------------------------------------------------------- main
@@ -974,6 +1387,11 @@ def main() -> None:
     match_rec = match_phase(device)
     back_rec = roi_backward_phase(device)
     launches = training(params, device)
+    block_rec = fused_block_phase(device)
+    roi8_rec = roi_int8_phase(device)
+    served = int8_serving(device)
+    launches["fused_block"] = served["int8-fused"]["launches"]["fused_block"]
+    launches["roi_align_int8"] = served["int8-default"]["launches"]["roi_align_int8"]
 
     kernels = []
     for name, rec, source, replaces in (
@@ -985,6 +1403,10 @@ def main() -> None:
          "objectdetection_tpu/ops/roi_align.py:213"),
         ("anchor_match", match_rec, "objectdetection_torch/csrc/anchor_match.cu",
          "objectdetection_tpu/ops/anchor_match.py:47"),
+        ("roi_align_int8", roi8_rec, "objectdetection_torch/csrc/roi_align.cu",
+         "objectdetection_tpu/ops/roi_align_pallas.py:104"),
+        ("fused_block", block_rec, "objectdetection_torch/csrc/fused_block.cu",
+         "objectdetection_tpu/ops/fused_block.py:98"),
     ):
         bytes_ms, ops_ms = rec["bytes_ms"], rec["ops_ms"]
         kernels.append({
@@ -996,7 +1418,7 @@ def main() -> None:
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],
-            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_ms": rec.get("bound_ms", max(bytes_ms, ops_ms)),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": rec.get("library_ms"),
         })

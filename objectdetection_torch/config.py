@@ -9,8 +9,9 @@ Fields that only steer the TPU program's layout (``conv1_space_to_depth``,
 ``align_skip_chunks``, ``pallas_roi_align``, ``remat_backbone``,
 ``proposal_decode_all``) are read and ignored by the port: they do not change
 the numbers. ``use_approx_topk`` is treated as exact top-k. The int8 fields
-take effect only with ``quantized_inference``, which the port does not run
-yet (see :func:`objectdetection_torch.detector.check_supported`).
+take effect with ``quantized_inference`` (the int8 serving path,
+:mod:`objectdetection_torch.quant`), which serves but does not train
+(:func:`objectdetection_torch.detector.check_supported`).
 """
 
 from __future__ import annotations

@@ -14,20 +14,26 @@ res2a_branch2a``); leaves are renamed and relaid:
   kernel) [kh, kw, in, out] → [in, out, kh, kw] flipped in both spatial axes,
   the layout ``F.conv_transpose2d`` needs for the same result;
 - FrozenBatchNorm ``scale``/``bias``/``mean``/``var`` keep their names (eps
-  1e-3 lives in the module).
+  1e-3 lives in the module);
+- the int8 serving path's ``quant`` collection (``act_scale``,
+  ``kernel_scale``, ``out_scale``, ``c1_out_scale``, ``shared_scale``,
+  ``pooled_box_scale``, ``pooled_mask_scale``) becomes buffers at the same
+  module paths, unchanged (the per-position scales of ``mrcnn_class_conv1``
+  and ``pooled_box_scale`` keep flax's (ph, pw, C) order, as the port
+  flattens); a frozen int8 kernel is relaid like a float one and stays int8.
 
 :func:`init_params` draws a fresh state dict from a ``torch.Generator`` with
 the same initializer families as the flax modules (``he_normal`` for the
 stem conv, ``lecun_normal`` for every other kernel, zero biases, BN scale 1
 except the zero-init ``bn*_branch2c``).
 
-For training, :func:`split_collections` splits a state dict as flax splits
-its variables: ``params`` (every weight and bias, and the BatchNorm
+:func:`split_collections` splits a state dict as flax splits its
+variables: ``params`` (every weight and bias, and the BatchNorm
 ``scale``/``bias``) train, ``batch_stats`` (BatchNorm ``mean``/``var``)
-stay frozen. :func:`train_state_from_flax` carries a JAX ``TrainState``
-across, optax's momentum trace and update count included; any tree shaped
-like ``params`` (a gradient tree too) relays out through
-:func:`flax_to_state_dict`.
+stay frozen, and ``quant`` holds the int8 scales.
+:func:`train_state_from_flax` carries a JAX ``TrainState`` across, optax's
+momentum trace and update count included; any tree shaped like ``params``
+(a gradient tree too) relays out through :func:`flax_to_state_dict`.
 """
 
 from __future__ import annotations
@@ -39,8 +45,9 @@ import numpy as np
 import torch
 
 from objectdetection_torch.config import DetectorConfig
+from objectdetection_torch.quant import QUANT_LEAVES
 
-_COLLECTIONS = ("params", "batch_stats")
+_COLLECTIONS = ("params", "batch_stats", "quant")
 _BATCH_STATS = ("mean", "var")  # FrozenBatchNorm leaves of the batch_stats collection
 # flax's truncated_normal variance_scaling divides the stddev by the std of
 # a unit normal truncated to [-2, 2]
@@ -68,32 +75,37 @@ def _relayout(path: Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
 
 
 def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax variable tree (numpy leaves) → port state dict (CPU f32 tensors)."""
+    """Flax variable tree (numpy leaves) → port state dict (CPU tensors: f32,
+    int8 for frozen kernels)."""
     extra = set(variables) - set(_COLLECTIONS)
     if extra:
         raise NotImplementedError(
-            f"collections {sorted(extra)} (int8 quantized trees) are not ported yet: "
-            "ROADMAP item A11"
+            f"collections {sorted(extra)} are not ported: the 'stats' means of int8 bias "
+            "correction are ROADMAP item A11's remainder (record_act_means / "
+            "apply_bias_correction)"
         )
     out: Dict[str, torch.Tensor] = {}
     for coll in _COLLECTIONS:
         for path, arr in _walk(variables.get(coll, {})):
             leaf = "weight" if path[-1] == "kernel" else path[-1]
             name = ".".join(path[:-1] + (leaf,))
-            arr = np.array(_relayout(path, np.asarray(arr, np.float32)), order="C")
-            out[name] = torch.from_numpy(arr)
+            arr = np.asarray(arr)
+            arr = arr if arr.dtype == np.int8 else arr.astype(np.float32)
+            out[name] = torch.from_numpy(np.array(_relayout(path, arr), order="C"))
     return out
 
 
 def split_collections(
     state_dict: Mapping[str, torch.Tensor],
-) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """State dict → (params, batch_stats), the flax collections: BatchNorm
-    ``mean``/``var`` are batch_stats, every other leaf is a param."""
-    params, stats = {}, {}
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """State dict → (params, batch_stats, quant), the flax collections:
+    BatchNorm ``mean``/``var`` are batch_stats, the int8 scales quant (empty
+    for a float config), every other leaf is a param."""
+    params, stats, quant = {}, {}, {}
     for name, t in state_dict.items():
-        (stats if name.rsplit(".", 1)[-1] in _BATCH_STATS else params)[name] = t
-    return params, stats
+        leaf = name.rsplit(".", 1)[-1]
+        (stats if leaf in _BATCH_STATS else quant if leaf in QUANT_LEAVES else params)[name] = t
+    return params, stats, quant
 
 
 def _find_fields(obj: Any, field: str) -> Iterator[Any]:

@@ -30,6 +30,16 @@
 // are taken in f32 and rounded once at the end (the plain version rounds to
 // bf16 after every op).
 //
+// The int8 epilogues (`roi_align_quant`) of the serving path: the same
+// block layout and tables, then each value times an f32 [ph, pw, C] map
+// and, for int8 output, rint + clip to [-128, 127] (quantize_act). Inputs
+// are f32 or bf16 levels (the float path's blend, bf16 rounded after every
+// product and sum as the plain version rounds, so the codes equal
+// quantize_act of the plain pooled tensor), or int8 codes blended in f32 with
+// f32 weights (the s_in/127 dequant is in the map). Bit-equal to the plain
+// version. What bounds it: bytes, as the float kernel, with 1-byte outputs
+// (and 1-byte reads for int8 levels).
+//
 // The backward (`roi_align_backward_*`) is the gradient with respect to
 // P2..P5; the boxes get none, as `jax.lax.stop_gradient(boxes)` gives in
 // objectdetection_tpu/ops/roi_align.py. The JAX package has no Pallas kernel
@@ -173,6 +183,79 @@ roi_align_kernel(Pyramid pyr, const float4* __restrict__ boxes, T* __restrict__ 
   }
 }
 
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The plain version's blend of one value: f32 (exact f32 ops), bf16 (each
+// weight, product and partial sum rounded to bf16) or int8 codes (f32 ops,
+// f32 weights).
+__device__ __forceinline__ float blend(const float* f, size_t i00, size_t i01, size_t i10,
+                                       size_t i11, float w00, float w01, float w10, float w11) {
+  float acc = __fmul_rn(f[i00], w00);
+  acc = __fadd_rn(acc, __fmul_rn(f[i01], w01));
+  acc = __fadd_rn(acc, __fmul_rn(f[i10], w10));
+  return __fadd_rn(acc, __fmul_rn(f[i11], w11));
+}
+__device__ __forceinline__ float blend(const __nv_bfloat16* f, size_t i00, size_t i01,
+                                       size_t i10, size_t i11, float w00, float w01,
+                                       float w10, float w11) {
+  const float p00 = bf16r(__fmul_rn(__bfloat162float(f[i00]), bf16r(w00)));
+  const float p01 = bf16r(__fmul_rn(__bfloat162float(f[i01]), bf16r(w01)));
+  const float p10 = bf16r(__fmul_rn(__bfloat162float(f[i10]), bf16r(w10)));
+  const float p11 = bf16r(__fmul_rn(__bfloat162float(f[i11]), bf16r(w11)));
+  return bf16r(__fadd_rn(bf16r(__fadd_rn(bf16r(__fadd_rn(p00, p01)), p10)), p11));
+}
+__device__ __forceinline__ float blend(const int8_t* f, size_t i00, size_t i01, size_t i10,
+                                       size_t i11, float w00, float w01, float w10, float w11) {
+  float acc = __fmul_rn((float)f[i00], w00);
+  acc = __fadd_rn(acc, __fmul_rn((float)f[i01], w01));
+  acc = __fadd_rn(acc, __fmul_rn((float)f[i10], w10));
+  return __fadd_rn(acc, __fmul_rn((float)f[i11], w11));
+}
+
+__device__ __forceinline__ void store_q(int8_t* p, size_t i, float v) {
+  const float q = fminf(fmaxf(rintf(v), -128.0f), 127.0f);
+  p[i] = (int8_t)(int)q;
+}
+__device__ __forceinline__ void store_q(__nv_bfloat16* p, size_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+// Tin: float, bf16 or int8 levels; Tout: int8 (quantized with the map) or
+// bf16 (int8 levels dequantized with the map).
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(THREADS)
+roi_align_quant_kernel(Pyramid pyr, const float4* __restrict__ boxes,
+                       const float* __restrict__ map, Tout* __restrict__ out,
+                       int rois_per_image, int channels, int ph, int pw,
+                       float canonical_scale, float ln2) {
+  __shared__ RoiTables s;
+  const int roi = blockIdx.x;
+  const int img = roi / rois_per_image;
+  roi_tables(pyr.dims, boxes[roi], ph, pw, canonical_scale, ln2, s);
+  const int li = s.level;
+  const int H = pyr.dims.h[li], W = pyr.dims.w[li];
+
+  const Tin* feat = static_cast<const Tin*>(pyr.feat[li]) + (size_t)img * H * W * channels;
+  Tout* dst = out + (size_t)roi * ph * pw * channels;
+  const int total = ph * pw * channels;
+  for (int idx = threadIdx.x; idx < total; idx += THREADS) {
+    const int c = idx % channels;
+    const int smp = idx / channels;
+    const int py = smp / pw, px = smp % pw;
+    const float wy = s.wy[py], wx = s.wx[px];
+    const float owy = __fsub_rn(1.0f, wy), owx = __fsub_rn(1.0f, wx);
+    const size_t r0 = (size_t)s.y0[py] * W, r1 = (size_t)s.y1[py] * W;
+    const size_t c0 = (size_t)s.x0[px], c1 = (size_t)s.x1[px];
+    const float v = blend(feat, (r0 + c0) * channels + c, (r0 + c1) * channels + c,
+                          (r1 + c0) * channels + c, (r1 + c1) * channels + c,
+                          __fmul_rn(owy, owx), __fmul_rn(owy, wx), __fmul_rn(wy, owx),
+                          __fmul_rn(wy, wx));
+    store_q(dst, idx, __fmul_rn(v, map[idx]));
+  }
+}
+
 __device__ __forceinline__ void scatter(float* p, float v) {
   if (v != 0.0f) atomicAdd(p, v);  // adding zero changes no bit of the sum
 }
@@ -237,6 +320,20 @@ int launch(const void* const* feats, const int* hw, const void* boxes, void* out
   return (int)cudaGetLastError();
 }
 
+template <typename Tin, typename Tout>
+int launch_quant(const void* const* feats, const int* hw, const void* boxes, const float* map,
+                 void* out, int batch, int rois, int channels, int ph, int pw,
+                 float canonical_scale, float ln2, void* stream) {
+  if (batch <= 0 || rois <= 0) return 0;
+  if (ph < 1 || pw < 1 || ph > MAX_POOL || pw > MAX_POOL) return (int)cudaErrorInvalidValue;
+  Pyramid pyr;
+  for (int l = 0; l < 4; ++l) pyr.feat[l] = feats[l];
+  pyr.dims = make_levels(hw);
+  roi_align_quant_kernel<Tin, Tout><<<batch * rois, THREADS, 0, (cudaStream_t)stream>>>(
+      pyr, (const float4*)boxes, map, (Tout*)out, rois, channels, ph, pw, canonical_scale, ln2);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_backward(const void* grad_out, const int* hw, const void* boxes,
                     float* const* grads, int batch, int rois, int channels, int ph, int pw,
@@ -273,6 +370,30 @@ extern "C" int roi_align_bf16(const void* p2, const void* p3, const void* p4, co
   const void* feats[4] = {p2, p3, p4, p5};
   return launch<__nv_bfloat16>(feats, hw, boxes, out, batch, rois, channels, ph, pw,
                                canonical_scale, ln2, stream);
+}
+
+// The int8 epilogues. in_kind: 0 f32, 1 bf16, 2 int8 levels; out_kind: 2 int8
+// (any input) or 1 bf16 (int8 input only); map: [ph, pw, channels] f32.
+extern "C" int roi_align_quant(const void* p2, const void* p3, const void* p4, const void* p5,
+                               const int* hw, const void* boxes, const float* map, void* out,
+                               int in_kind, int out_kind, int batch, int rois, int channels,
+                               int ph, int pw, float canonical_scale, float ln2, void* stream) {
+  const void* feats[4] = {p2, p3, p4, p5};
+  if (out_kind == 2) {
+    if (in_kind == 0)
+      return launch_quant<float, int8_t>(feats, hw, boxes, map, out, batch, rois, channels, ph,
+                                         pw, canonical_scale, ln2, stream);
+    if (in_kind == 1)
+      return launch_quant<__nv_bfloat16, int8_t>(feats, hw, boxes, map, out, batch, rois,
+                                                 channels, ph, pw, canonical_scale, ln2, stream);
+    if (in_kind == 2)
+      return launch_quant<int8_t, int8_t>(feats, hw, boxes, map, out, batch, rois, channels, ph,
+                                          pw, canonical_scale, ln2, stream);
+  } else if (out_kind == 1 && in_kind == 2) {
+    return launch_quant<int8_t, __nv_bfloat16>(feats, hw, boxes, map, out, batch, rois,
+                                               channels, ph, pw, canonical_scale, ln2, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // grad_out: [batch, rois, ph, pw, channels] in the feature type; hw and boxes

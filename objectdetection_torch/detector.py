@@ -20,6 +20,12 @@ is how the tests feed both frameworks the same numbers.
 Entry points run on the card unless the caller asks for the CPU:
 ``make_infer_fn(config)`` and ``make_train_step(config)`` mean
 ``device="cuda"`` and raise when there is no card.
+
+Int8 serving (``quantized_inference=True``): start from a float state dict
+of the quantized config (``init_params`` or a converted flax tree), record
+the activation scales with :func:`calibrate_variables`, pre-quantize the
+kernels with :func:`freeze_weights`, and serve the result with
+``make_infer_fn``. The int8 path is inference only.
 """
 
 from __future__ import annotations
@@ -40,11 +46,12 @@ from objectdetection_torch.layers.targets import (
     Noise, detection_targets, rpn_targets, uniform_noise,
 )
 from objectdetection_torch.models.mask_rcnn import MaskRCNN
+from objectdetection_torch.quant import calibrate_variables, freeze_weights
 
 __all__ = ["Detections", "TrainBatch", "TrainNoise", "TrainState", "build_model",
-           "check_supported", "compute_losses", "create_train_state", "draw_noise",
-           "forward_inference", "init_params", "make_infer_fn", "make_train_step",
-           "train_step"]
+           "calibrate_variables", "check_state", "check_supported", "compute_losses",
+           "create_train_state", "draw_noise", "forward_inference", "freeze_weights",
+           "init_params", "make_infer_fn", "make_train_step", "train_step"]
 
 
 class Detections(NamedTuple):
@@ -57,12 +64,27 @@ class Detections(NamedTuple):
     masks: Optional[torch.Tensor] = None  # [B, N, 28, 28] predicted-class soft masks
 
 
-def check_supported(config: DetectorConfig) -> None:
-    """Raise for what the port does not run yet (no silent float fallback)."""
-    if config.quantized_inference:
+def check_supported(config: DetectorConfig, training: bool = False) -> None:
+    """Raise for what the port does not run (no silent float fallback): the
+    int8 path serves only, as in JAX (round and clip have no gradient)."""
+    if training and config.quantized_inference:
         raise NotImplementedError(
-            "quantized_inference (the int8 PTQ path) is not ported yet: ROADMAP item A11"
+            "quantized_inference is the int8 serving path: training needs the float config"
         )
+
+
+def check_state(params: Dict[str, torch.Tensor], config: DetectorConfig) -> None:
+    """Raise unless ``params`` holds exactly the tensors ``config``'s network
+    has, each of its shape (an int8 kernel stands for a frozen weight)."""
+    want = build_model(config).state_dict()
+    missing, extra = sorted(set(want) - set(params)), sorted(set(params) - set(want))
+    if missing or extra:
+        raise ValueError(f"state dict does not fit the config: missing {missing[:3]}, "
+                         f"unexpected {extra[:3]}")
+    for k, v in want.items():
+        if tuple(params[k].shape) != tuple(v.shape):
+            raise ValueError(f"state dict does not fit the config: {k} has shape "
+                             f"{tuple(params[k].shape)}, the network {tuple(v.shape)}")
 
 
 @functools.lru_cache(maxsize=16)
@@ -88,6 +110,7 @@ def forward_inference(
     ``return_intermediates``.
     """
     check_supported(config)
+    check_state(params, config)
     model = build_model(config)
     det, masks, intermediates = functional_call(
         model, params, (images, windows, with_masks, return_intermediates), strict=True
@@ -108,7 +131,9 @@ def make_infer_fn(config: DetectorConfig, with_masks: bool = True, device="cuda"
     """Returns ``infer_fn(params, images, windows) -> Detections`` on ``device``.
 
     Inputs may be numpy arrays or tensors; they are moved to ``device``.
-    ``params`` must already live there.
+    ``params`` must already live there: for ``quantized_inference``, the
+    state dict from :func:`calibrate_variables` (then best frozen by
+    :func:`freeze_weights`).
     """
     check_supported(config)
     dev = resolve_device(device)
@@ -244,7 +269,7 @@ def compute_losses(
     of losses, plus ``(RPNTargets, proposals, DetectionTargets)`` with
     ``return_targets``. Masks enter with ``with_masks`` and ``batch.gt_masks``.
     """
-    check_supported(config)
+    check_supported(config, training=True)
     if noise is None:
         noise = draw_noise(config, batch, generator)
     with_masks = with_masks and batch.gt_masks is not None
@@ -257,7 +282,8 @@ def create_train_state(config: DetectorConfig, generator: Optional[torch.Generat
                        train_layers: str = "all", device="cuda") -> TrainState:
     """Random weights from ``init_params``, split into the flax collections,
     with a fresh optimizer state."""
-    params, stats = split_collections(init_params(config, generator, device))
+    check_supported(config, training=True)
+    params, stats, _ = split_collections(init_params(config, generator, device))
     return TrainState(params, stats, optim.init(params, train_layers), 0)
 
 
@@ -298,7 +324,7 @@ def make_train_step(config: DetectorConfig, with_masks: bool = False,
     """Returns ``step(state, batch, generator, noise=None) -> (state,
     metrics)`` on ``device``. The batch's arrays (numpy or tensors) are moved
     there; the state must already live there."""
-    check_supported(config)
+    check_supported(config, training=True)
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: TrainBatch, generator=None,

@@ -1,9 +1,14 @@
 """ROI heads: box/class classifier and the class-selected mask predictor.
 
 Port of ``objectdetection_tpu.models.heads`` (``BoxClassHead``, ``MaskHead``,
-``_MaskFinalConv``), float path. The 7×7 VALID conv over a pooled ROI is a
-dense layer over the ROI flattened in (ph, pw, C) order, as in the flax
-module.
+``_MaskFinalConv``). The 7×7 VALID conv over a pooled ROI is a dense layer
+over the ROI flattened in (ph, pw, C) order, as in the flax module.
+
+Quantized (``quant`` given): the box head's two 1024-wide layers are
+QuantDense and the mask head's four trunk convs QuantConv; both heads take
+an int8 pooled tensor with its scale (``in_scale``, from ROIAlign's int8
+epilogue) into their first layer. Logits, box deltas, the deconv and the
+final mask conv stay float.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from objectdetection_torch.models.backbone import Conv, FrozenBatchNorm
+from objectdetection_torch import quant as Q
+from objectdetection_torch.models.backbone import Conv, FrozenBatchNorm, Quant, make_conv
 
 
 class Dense(nn.Module):
@@ -32,20 +38,31 @@ class Dense(nn.Module):
 class BoxClassHead(nn.Module):
     """Pooled ROIs [B, R, ph, pw, C] → (logits, probs [B, R, K], bbox [B, R, K, 4])."""
 
-    def __init__(self, num_classes: int, pool: int = 7, channels: int = 256):
+    def __init__(self, num_classes: int, pool: int = 7, channels: int = 256,
+                 quant: Optional[Quant] = None):
         super().__init__()
         self.num_classes = num_classes
-        self.mrcnn_class_conv1 = Dense(pool * pool * channels, 1024)
+        if quant is None:
+            dense = Dense
+        else:
+            dense = lambda ci, co: Q.QuantDense(ci, co, quant.per_channel, quant.dtype)
+        self.mrcnn_class_conv1 = dense(pool * pool * channels, 1024)
         self.mrcnn_class_bn1 = FrozenBatchNorm(1024)
-        self.mrcnn_class_conv2 = Dense(1024, 1024)
+        self.mrcnn_class_conv2 = dense(1024, 1024)
         self.mrcnn_class_bn2 = FrozenBatchNorm(1024)
         self.mrcnn_class_logits = Dense(1024, num_classes)
         self.mrcnn_bbox_fc = Dense(1024, num_classes * 4)
 
-    def forward(self, pooled: torch.Tensor, dtype: torch.dtype):
+    def forward(self, pooled: torch.Tensor, dtype: torch.dtype,
+                in_scale: Optional[torch.Tensor] = None):
+        """pooled [B, R, ph, pw, C]: float, or int8 with its ``in_scale``."""
         b, r, ph, pw, c = pooled.shape
-        x = pooled.reshape(b, r, ph * pw * c).to(dtype)
-        x = F.relu(self.mrcnn_class_bn1(self.mrcnn_class_conv1(x), channel_dim=-1))
+        x = pooled.reshape(b, r, ph * pw * c)
+        if in_scale is not None:
+            x = self.mrcnn_class_conv1(x, in_scale)
+        else:
+            x = self.mrcnn_class_conv1(x.to(dtype))
+        x = F.relu(self.mrcnn_class_bn1(x, channel_dim=-1))
         x = self.mrcnn_class_conv2(x)
         shared = F.relu(self.mrcnn_class_bn2(x, channel_dim=-1)).to(torch.float32)
         logits = self.mrcnn_class_logits(shared)
@@ -62,11 +79,12 @@ class MaskHead(nn.Module):
     giving [B, R, 28, 28]; without, [B, R, 28, 28, num_classes].
     """
 
-    def __init__(self, num_classes: int, channels: int = 256, cin: int | None = None):
+    def __init__(self, num_classes: int, channels: int = 256, cin: int | None = None,
+                 quant: Optional[Quant] = None):
         super().__init__()
         for i in range(1, 5):
             c_in = (cin or channels) if i == 1 else channels
-            self.add_module(f"mrcnn_mask_conv{i}", Conv(c_in, channels, 3))
+            self.add_module(f"mrcnn_mask_conv{i}", make_conv(quant, c_in, channels, 3))
             self.add_module(f"mrcnn_mask_bn{i}", FrozenBatchNorm(channels))
         # torch layout [in, out, kh, kw]; the converter flips the flax kernel
         self.mrcnn_mask_deconv = nn.Module()
@@ -76,14 +94,17 @@ class MaskHead(nn.Module):
         self.mrcnn_mask = Conv(channels, num_classes, 1)
 
     def forward(self, pooled: torch.Tensor, class_ids: Optional[torch.Tensor],
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, in_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """pooled [B, R, 14, 14, C]: float, or int8 with its ``in_scale``."""
         b, r, ph, pw, c = pooled.shape
-        x = pooled.reshape(b * r, ph, pw, c).permute(0, 3, 1, 2).to(dtype)
-        x = x.contiguous(memory_format=torch.channels_last)
+        x = pooled.reshape(b * r, ph, pw, c)
+        if in_scale is None:
+            x = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
         for i in range(1, 5):
             conv = self._modules[f"mrcnn_mask_conv{i}"]
             bn = self._modules[f"mrcnn_mask_bn{i}"]
-            x = F.relu(bn(conv(x)))
+            x = conv(x, in_scale) if (i == 1 and in_scale is not None) else conv(x)
+            x = F.relu(bn(x))
         d = self.mrcnn_mask_deconv
         x = F.relu(F.conv_transpose2d(x, d.weight.to(dtype), d.bias.to(dtype), stride=2))
         x = x.to(torch.float32)

@@ -18,6 +18,23 @@ assignment rule; zero-area boxes pin to the finest level.
 (through an autograd Function whose backward launches the gradient kernel)
 and runs :func:`batched_multilevel_roi_align_plain`, which autograd
 differentiates, for CPU features.
+
+The int8 serving path adds two epilogues, as the Pallas kernel takes them
+(``out_quant`` and ``in_scale``, roi_align_pallas.py:315-338, 693-711):
+
+- ``out_quant``, a [ph, pw, C] scale map: the output is int8, each value
+  quantized as ``quantize_act`` does (``round(v · 127·inv(s))``, clipped).
+  A float input is blended exactly as the float path blends it (in bf16,
+  rounded after every operation as PyTorch and XLA round), so its codes are
+  those of ``quantize_act`` of the float path's pooled tensor, bit for bit;
+- ``in_scale`` (scalar or [C]): the levels are int8 codes with that scale;
+  the bilinear blend runs on the raw codes in f32 with f32 weights, and the
+  s_in/127 dequant moves into the epilogue map (alone: a bf16 output).
+
+Both variants are inference only. The kernel and the plain version compute
+the same f32 operations in the same order, so they are bit-equal; zero boxes
+need no fill, as they sample the P2 corner, which the map quantizes as the
+Pallas kernel's zero-row fill does (roi_align_pallas.py:809-830).
 """
 
 from __future__ import annotations
@@ -33,6 +50,7 @@ from objectdetection_torch.ops import cuda_build
 
 launches = 0  # forward kernel launches (never counts the plain version)
 backward_launches = 0  # gradient kernel launches
+int8_launches = 0  # launches of the int8-epilogue variants
 
 LN2 = float(np.log(np.float32(2.0)).astype(np.float32))
 _MAX_POOL = 32
@@ -180,19 +198,49 @@ def touched_rows(features: Sequence[torch.Tensor], boxes, image_shape, crop_size
     return int(torch.unique(rows).numel())
 
 
+def epilogue_map(out_quant, in_scale, crop_size, channels: int, device) -> torch.Tensor:
+    """The f32 [ph, pw, C] multiplier of the int8 epilogues: 127·inv(s_out)
+    (``quantize_act``'s formula) for ``out_quant``, times s_in/127 for int8
+    input."""
+    ph, pw = crop_size
+    m = None
+    if out_quant is not None:
+        s = out_quant.to(device=device, dtype=torch.float32).expand(ph, pw, channels)
+        inv = torch.where(s > 0, _f32(1.0, s) / torch.clamp(s, min=1e-30), torch.zeros_like(s))
+        m = inv * 127.0
+    if in_scale is not None:
+        s_in = in_scale.to(device=device, dtype=torch.float32).reshape(-1).expand(channels)
+        d = s_in / _f32(127.0, s_in)
+        m = d.expand(ph, pw, channels) if m is None else m * d
+    return m.contiguous()
+
+
 def batched_multilevel_roi_align_plain(
     features: Sequence[torch.Tensor],
     boxes: torch.Tensor,
     image_shape: Tuple[int, int],
     crop_size: Tuple[int, int],
+    out_quant=None,
+    in_scale=None,
 ) -> torch.Tensor:
     """features: P2..P5, each [B, H_l, W_l, C]; boxes [B, R, 4] → [B, R, ph, pw, C].
 
     The four-gather form of ``roi_align.batched_multilevel_roi_align``: every
     level flattens into one [Σ B·H_l·W_l, C] table and each bilinear corner is
-    one row gather; the weighted sum runs in the feature dtype.
+    one row gather; the weighted sum runs in the feature dtype (f32 for int8
+    codes). ``out_quant`` / ``in_scale``: the int8 epilogues (module doc).
     """
     features = list(features)
+    if out_quant is not None or in_scale is not None:
+        if (in_scale is not None) != (features[0].dtype == torch.int8):
+            raise ValueError("roi_align: int8 levels go with in_scale, and only they")
+        if in_scale is not None:
+            features = [f.to(torch.float32) for f in features]
+        v = batched_multilevel_roi_align_plain(features, boxes, image_shape, crop_size)
+        m = epilogue_map(out_quant, in_scale, crop_size, v.shape[-1], v.device)
+        if out_quant is None:
+            return (v * m).to(torch.bfloat16)
+        return torch.clamp(torch.round(v.to(torch.float32) * m), -128.0, 127.0).to(torch.int8)
     b, r = boxes.shape[:2]
     c = features[0].shape[-1]
     flat = torch.cat([f.reshape(-1, c) for f in features], dim=0)
@@ -214,7 +262,7 @@ def _check_pyramid(shapes, dtypes, devices, boxes, crop_size):
     if len(shapes) != 4:
         raise ValueError("roi_align kernel: expects exactly the 4 levels P2..P5")
     dtype = dtypes[0]
-    if dtype not in (torch.float32, torch.bfloat16):
+    if dtype not in (torch.float32, torch.bfloat16, torch.int8):
         raise ValueError(f"roi_align kernel: unsupported dtype {dtype}")
     b, r, four = boxes.shape
     c = shapes[0][-1]
@@ -234,6 +282,8 @@ def _forward_kernel(features, boxes, image_shape, crop_size) -> torch.Tensor:
     _check_pyramid([f.shape for f in features], [f.dtype for f in features],
                    [f.device for f in features], boxes, crop_size)
     dtype = features[0].dtype
+    if dtype == torch.int8:
+        raise ValueError("roi_align: int8 levels need their in_scale")
     b, r = boxes.shape[:2]
     c = features[0].shape[-1]
     ph, pw = crop_size
@@ -258,6 +308,47 @@ def _forward_kernel(features, boxes, image_shape, crop_size) -> torch.Tensor:
                     boxes.data_ptr(), out.data_ptr(), b, r, c, ph, pw, scale, LN2, stream)
     cuda_build.check(status, "roi_align")
     launches += 1
+    return out
+
+
+_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _quant_kernel(features, boxes, image_shape, crop_size, out_quant, in_scale) -> torch.Tensor:
+    """The int8-epilogue variants on the card (inference: no gradient)."""
+    _check_pyramid([f.shape for f in features], [f.dtype for f in features],
+                   [f.device for f in features], boxes, crop_size)
+    dtype = features[0].dtype
+    if (in_scale is not None) != (dtype == torch.int8):
+        raise ValueError("roi_align: int8 levels go with in_scale, and only they")
+    b, r = boxes.shape[:2]
+    c = features[0].shape[-1]
+    ph, pw = crop_size
+    feats = [f.contiguous() for f in features]
+    boxes = boxes.to(torch.float32).contiguous()
+    m = epilogue_map(out_quant, in_scale, crop_size, c, boxes.device)
+    out_dtype = torch.int8 if out_quant is not None else torch.bfloat16
+    out = torch.empty((b, r, ph, pw, c), dtype=out_dtype, device=boxes.device)
+    if b == 0 or r == 0:
+        return out
+    global int8_launches
+    lib = cuda_build.load("roi_align")
+    fn = lib.roi_align_quant
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    scale = _canonical_scale(float(image_shape[0] * image_shape[1]))
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    with torch.cuda.device(boxes.device):
+        status = fn(*[f.data_ptr() for f in feats], _level_dims([f.shape for f in feats]),
+                    boxes.data_ptr(), m.data_ptr(), out.data_ptr(), _KINDS[dtype],
+                    _KINDS[out_dtype], b, r, c, ph, pw, scale, LN2, stream)
+    cuda_build.check(status, "roi_align_quant")
+    int8_launches += 1
     return out
 
 
@@ -343,16 +434,25 @@ def batched_multilevel_roi_align(
     boxes: torch.Tensor,
     image_shape: Tuple[int, int],
     crop_size: Tuple[int, int],
+    out_quant=None,
+    in_scale=None,
 ) -> torch.Tensor:
     """Pyramid ROIAlign: P2..P5 [B, H_l, W_l, C] (f32 or bf16) × boxes
     [B, R, 4] f32 → [B, R, ph, pw, C] in the feature dtype. Differentiable in
-    the features on every device (never in the boxes)."""
+    the features on every device (never in the boxes).
+
+    ``out_quant`` [ph, pw, C] scales → int8 output; ``in_scale`` (scalar or
+    [C]) with int8 levels → the blend of the codes, dequantized (bf16
+    output) or requantized with ``out_quant``. See the module doc."""
     features = list(features)
     if features[0].device.type == "cpu":
         return batched_multilevel_roi_align_plain(features, boxes.detach(), image_shape,
-                                                  crop_size)
+                                                  crop_size, out_quant, in_scale)
     if features[0].device.type != "cuda":
         raise ValueError(f"roi_align: unsupported device {features[0].device}")
+    if out_quant is not None or in_scale is not None:
+        return _quant_kernel(features, boxes.detach(), tuple(image_shape), tuple(crop_size),
+                             out_quant, in_scale)
     return _RoIAlign.apply(boxes.detach(), tuple(image_shape), tuple(crop_size), *features)
 
 

@@ -11,14 +11,18 @@ plain version rounds after every op). The anchor-match kernel is held exactly
 (maxima bit-equal, argmaxes equal). The ROIAlign gradient kernel sums with
 f32 atomics, so it is held elementwise within
 ``roi_align.backward_tolerance`` of the plain backward (autograd of the plain
-version), and in bf16 also within its bound of the f32 backward.
+version), and in bf16 also within its bound of the f32 backward. The int8
+serving kernels (ROIAlign's int8 epilogues, the fused int8 bottleneck block)
+and the integer product (``torch._int_mm`` behind ``quant.int8_matmul``) are
+held bit-equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from objectdetection_torch.ops import anchor_match, nms, roi_align
+from objectdetection_torch import quant
+from objectdetection_torch.ops import anchor_match, fused_block, nms, roi_align
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +139,65 @@ def test_roi_align_output_carries_the_feature_gradient(cuda):
     with torch.no_grad():
         assert not roi_align.batched_multilevel_roi_align(feats, boxes, (128, 128),
                                                           (7, 7)).requires_grad
+
+
+@pytest.mark.parametrize("in_kind", ["bf16", "f32", "int8_channel", "int8_scalar"])
+def test_roi_align_int8_epilogues_match_plain(cuda, in_kind):
+    gen = torch.Generator().manual_seed(5)
+    c = 64
+    f32 = [torch.randn(2, s, s, c, generator=gen) for s in (64, 32, 16, 8)]
+    kw = {}
+    if in_kind.startswith("int8"):
+        s_in = (torch.rand(c, generator=gen) * 3 + 1) if in_kind == "int8_channel" \
+            else torch.tensor(2.5)
+        feats = [quant.quantize_act(f, s_in).to(cuda) for f in f32]
+        kw["in_scale"] = s_in.to(cuda)
+    else:
+        feats = [f.to(cuda, torch.bfloat16 if in_kind == "bf16" else torch.float32)
+                 for f in f32]
+    y1x1 = torch.rand(2, 300, 2, generator=gen) * 0.8
+    boxes = torch.cat([y1x1, (y1x1 + torch.rand(2, 300, 2, generator=gen)).clamp(max=1)], -1)
+    boxes[:, :20] = 0.0
+    boxes = boxes.to(cuda)
+    for crop in ((7, 7), (14, 14)):
+        s_out = (torch.rand(*crop, c, generator=gen) * 3 + 0.5).to(cuda)
+        variants = [dict(kw, out_quant=s_out)] + ([dict(kw)] if kw else [])
+        for v in variants:
+            before = roi_align.int8_launches
+            got = roi_align.batched_multilevel_roi_align(feats, boxes, (256, 256), crop, **v)
+            assert roi_align.int8_launches == before + 1
+            want = roi_align.batched_multilevel_roi_align_plain(feats, boxes, (256, 256),
+                                                                crop, **v)
+            assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("h,w,c3,c1", [(64, 64, 256, 64), (16, 16, 1024, 256),
+                                       (16, 8, 2048, 512)])
+def test_fused_block_kernel_matches_plain(cuda, h, w, c3, c1):
+    rng = np.random.RandomState(6)
+    t = lambda a: torch.from_numpy(np.array(a)).to(cuda)
+    k = lambda *s: t(rng.randint(-127, 128, s).astype(np.int8))
+    v = lambda n, lo=0.5, hi=1.5: t(rng.uniform(lo, hi, n).astype(np.float32))
+    x8 = t(rng.randint(-128, 128, (2, h, w, c3)).astype(np.int8))
+    args = (x8, t(np.float32(3.0)), k(1, 1, c3, c1), k(3, 3, c1, c1), k(1, 1, c1, c3),
+            v(c1) * 0.01, v(c1) * 0.002, v(c3) * 0.01,
+            v(c1, -0.2, 0.2), v(c1, -0.2, 0.2), v(c3, -0.2, 0.2),
+            (v(c1), v(c1, -0.3, 0.3)), (v(c1), v(c1, -0.3, 0.3)), (v(c3), v(c3, -0.3, 0.3)),
+            t(np.float32(4.0)), t(np.float32(5.0)), t(np.float32(6.0)))
+    before = fused_block.launches
+    got = fused_block.fused_identity_block_int8(*args)
+    assert fused_block.launches == before + 1
+    want = fused_block.fused_identity_block_int8_plain(*args)
+    assert torch.equal(got, want)
+    assert int((want != 0).sum()) > want.numel() // 4  # the block is not all clipped
+
+
+def test_int8_matmul_is_exact_on_the_card(cuda):
+    rng = np.random.RandomState(7)
+    for m, k, n in ((5, 147, 64), (4000, 2304, 256), (33, 512, 18)):
+        a = rng.randint(-128, 128, (m, k)).astype(np.int8)
+        b = rng.randint(-127, 128, (k, n)).astype(np.int8)
+        got = quant.int8_matmul(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda))
+        assert got.dtype == torch.int32
+        want = a.astype(np.int64) @ b.astype(np.int64)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)

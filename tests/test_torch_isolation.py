@@ -5,7 +5,9 @@
   the sources).
 - Entry points default to the card: with no card they raise instead of
   running on the CPU; ``device="cpu"`` runs on the CPU.
-- Unported options raise instead of falling back.
+- Unported options raise instead of falling back: the int8 path serves
+  but does not train, and bias correction's ``stats`` collection is not
+  ported.
 """
 
 import ast
@@ -14,6 +16,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -81,11 +84,24 @@ def test_default_device_is_the_card():
 
 
 def test_quantized_inference_raises_not_implemented():
+    # the int8 path builds and serves on the CPU; what it does not do raises
     cfg = SHAPES_CONFIG.replace(quantized_inference=True)
+    params = convert.init_params(cfg, device="cpu")
+    assert params["fpn.resnet.res2a.res2a_branch2a.act_scale"].shape == ()
+    assert params["pooled_box_scale"].shape == ()
+    assert detector.make_infer_fn(cfg, device="cpu") is not None
+    with pytest.raises(NotImplementedError, match="serving"):
+        detector.make_train_step(cfg, device="cpu")
+    sd = convert.flax_to_state_dict({
+        "params": {"conv": {"kernel": np.ones((1, 1, 2, 3), np.int8)}},
+        "quant": {"conv": {"act_scale": np.float32(2.0), "kernel_scale": np.ones(3, np.float32)}},
+    })
+    assert sd["conv.weight"].dtype == torch.int8 and sd["conv.weight"].shape == (3, 2, 1, 1)
+    assert sd["conv.act_scale"].shape == ()
+    params, stats, quant = convert.split_collections(sd)
+    assert set(quant) == {"conv.act_scale", "conv.kernel_scale"} and set(params) == {"conv.weight"}
     with pytest.raises(NotImplementedError, match="A11"):
-        detector.make_infer_fn(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        convert.flax_to_state_dict({"params": {}, "quant": {}})
+        convert.flax_to_state_dict({"params": {}, "quant": {}, "stats": {}})
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

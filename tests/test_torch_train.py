@@ -155,7 +155,7 @@ def jax_step(state, batch, rng):
 def runs():
     model = jdet.build_model(JCFG)
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
-    params, stats = split_collections(init_params(TCFG, torch.Generator().manual_seed(3), "cpu"))
+    params, stats, _ = split_collections(init_params(TCFG, torch.Generator().manual_seed(3), "cpu"))
     variables = to_flax({**params, **stats}, dict(shapes))
     jstate = jdet.TrainState(
         params=variables["params"], batch_stats=variables["batch_stats"],
