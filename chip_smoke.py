@@ -11,7 +11,12 @@ and prints no result:
    TF32 is turned off for the comparisons;
 2. NMS kernel against its plain version at the two main-path shapes;
 3. ROIAlign kernel against its plain version at the COCO pyramid shapes, f32
-   (bit-equal) and bf16 (stated tolerance), box stage and mask stage;
+   (bit-equal) and bf16 (stated tolerance), box stage and mask stage; then
+   on boxes outside the map (a NaN box, a box left of and above image 0's P2
+   whose table index wraps to the end of the table, a box above image 1's
+   P4 that reads image 0's rows): the f32 kernel bit-equal, bf16 within its
+   tolerance, the int8 epilogue bit-equal and the gradient within
+   ``backward_tolerance``, each with NaNs in the plain version's places;
 4. end to end: COCO_CONFIG (ResNet-101 + FPN, 1024², bf16) with seeded random
    weights answers 3 requests of batch 2 through ``make_infer_fn``; the kernel
    launch counters are read around that run; then where a batch's time goes
@@ -44,11 +49,19 @@ and prints no result:
    the 29 identity blocks fused on the unfused stream's own input): within 2
    steps, under 1e-3 of the codes more than 1 (the chained C2–C5 drift, in
    f32 and bf16, printed); (f) int8 against the bf16 float path on the same
-   weights, printed, not gated.
+   weights, printed, not gated;
+8. the ROIAlign design probes of the TPU round (``objectdetection_torch/
+   probes/``) at the TPU scripts' own sizes: P1 ``patch_dma`` (three
+   (ROIs, patch) cases, within n·2^-24·Σ|x| of its plain version; the
+   library yardstick is one advanced-index gather of every patch), P2
+   ``roi_inner`` (all six variants) and P3 ``roi_dispatch`` (three
+   variants), bit-equal; then each probe's entry point (``main``) runs every
+   case and variant with the launch counters read around it.
 
 The line before the last is the kernel table as JSON (launches counted on
 the path that runs each kernel: the training path for the four of phases
-2–6, the int8 serving paths for the fused block and the int8 ROIAlign); the
+2–6, the int8 serving paths for the fused block and the int8 ROIAlign, the
+probes' entry points for the three probe kernels); the
 last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -123,23 +136,24 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def device_ms(fn, reps: int = 20) -> float:
     """Device time per call of everything ``fn`` launches, from
-    torch.profiler. CUDA events around back-to-back calls measure the host
-    instead where a call's enqueue outlasts its kernels (anchor matching:
-    ~0.13 ms of Python and ctypes per call around ~0.09 ms of kernels)."""
+    torch.profiler (``probes.common.device_ms``). CUDA events around
+    back-to-back calls measure the host instead where a call's enqueue
+    outlasts its kernels (anchor matching: ~0.13 ms of Python and ctypes per
+    call around ~0.09 ms of kernels)."""
+    from objectdetection_torch.probes import common
+
+    try:
+        return common.device_ms(fn, reps)
+    except RuntimeError as e:
+        fail(str(e))
+
+
+def same(a, b) -> bool:
+    """Bit-equal values with NaNs in the same places."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in events) / 1e3 / reps
-    if not total > 0:
-        fail("device_ms: the profiler saw no device time")
-    return total
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return torch.equal(nan_a, nan_b) and torch.equal(a[~nan_a], b[~nan_b])
 
 
 # ---------------------------------------------------------------- phase 1
@@ -337,7 +351,71 @@ def roi_phase(device):
             f"bf16 max |diff| {err:.3g} <= tol {tol:.3g}; kernel bf16 {ms:.4f} ms device "
             f"({ev_ms:.4f} ms between events; f32 {ms32:.4f}), plain bf16 {plain_ms:.3f} ms; "
             f"bound {bytes_ / PEAK_BYTES * 1e3:.4f} ms ({bytes_ / 1e6:.1f} MB)")
+    out_of_map(feats32, feats16, image, cfg, device)
     return rec
+
+
+def out_of_map(feats32, feats16, image, cfg, device):
+    """The three ROIAlign kernels on boxes outside the map, which read what
+    JAX's gather reads (a wrapped table index, NaN where it reads NaN), held
+    against their plain versions."""
+    import torch
+
+    from objectdetection_torch.ops import roi_align
+
+    nan = float("nan")
+    boxes = torch.tensor([
+        [[nan, nan, nan, nan], [-0.05, -0.05, 0.02, 0.02]],  # NaN; P2, wraps to the end
+        [[-0.3, 0.2, -0.1, 0.4], [0.2, 0.3, 0.6, 0.7]],  # above image 1's P4; inside
+    ], device=device)
+    levels = roi_align.roi_levels(boxes, image[0] * image[1]).tolist()
+    rows = roi_align._corners([f.shape[1:3] for f in feats32], boxes, image, cfg.pool_shape)
+    table = sum(f.shape[0] * f.shape[1] * f.shape[2] for f in feats32)
+    r01 = torch.stack([r for r, _ in rows]).reshape(4, 2, 2, -1)[:, 0, 1]
+    if not (levels[0][1] == 2 and bool((r01 >= table - BATCH * 32 * 32).any())):
+        fail(f"roi_align out of map: the wrap case does not wrap (levels {levels})")
+    grad_shapes = [tuple(f.shape) for f in feats32]
+    gen = torch.Generator().manual_seed(12)
+    c = feats32[0].shape[-1]
+    for name, crop in (("box", cfg.pool_shape), ("mask", cfg.mask_pool_shape)):
+        k32 = roi_align.batched_multilevel_roi_align(feats32, boxes, image, crop)
+        p32 = roi_align.batched_multilevel_roi_align_plain(feats32, boxes, image, crop)
+        torch.cuda.synchronize()
+        if not (same(k32, p32) and bool(torch.isnan(p32[0, 0]).all())
+                and bool(torch.isfinite(p32[:, 1:]).all() and torch.isfinite(p32[1]).all())):
+            fail(f"roi_align out of map {name} f32: kernel not bit-equal to plain")
+        k16 = roi_align.batched_multilevel_roi_align(feats16, boxes, image, crop)
+        p16 = roi_align.batched_multilevel_roi_align_plain(feats16, boxes, image, crop)
+        fin = ~torch.isnan(p16)
+        err16 = float((k16[fin].float() - p16[fin].float()).abs().max())
+        if not (torch.equal(torch.isnan(k16), ~fin) and err16 <= roi_align.bf16_tolerance(feats16)):
+            fail(f"roi_align out of map {name} bf16: max |diff| {err16}")
+        s_out = (torch.rand(*crop, c, generator=gen) * 2 + 3.0).to(device)
+        k8 = roi_align.batched_multilevel_roi_align(feats16, boxes, image, crop, out_quant=s_out)
+        p8 = roi_align.batched_multilevel_roi_align_plain(feats16, boxes, image, crop,
+                                                          out_quant=s_out)
+        if not (k8.dtype == torch.int8 and torch.equal(k8, p8) and not bool(k8[0, 0].any())):
+            fail(f"roi_align out of map {name} int8: kernel not bit-equal to plain")
+        worst = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.randn(BATCH, 2, *crop, c, generator=gen).to(device, dtype)
+            got = roi_align.roi_align_backward(g, boxes, grad_shapes, image)
+            want = roi_align.roi_align_backward_plain(g, boxes, grad_shapes, image)
+            tol = roi_align.backward_tolerance(g, boxes, grad_shapes, image)
+            torch.cuda.synchronize()
+            for k, p, t in zip(got, want, tol):
+                kd, pd = k.double(), p.double()
+                fin = ~torch.isnan(pd)
+                if not torch.equal(torch.isnan(kd), ~fin):
+                    fail(f"roi_align out of map {name} gradient {dtype}: NaNs differ")
+                d = (kd - pd).abs()[fin]
+                if bool((d > t.expand_as(kd)[fin]).any()):
+                    fail(f"roi_align out of map {name} gradient {dtype}: beyond the bound")
+                worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        log(f"roi_align out of map {name} (NaN box; image 0 P2 wrapping to the table's end; "
+            f"image 1 above its P4; levels {levels}): f32 bit-equal, bf16 max |diff| "
+            f"{err16:.3g}, int8 bit-equal (NaN box -> code 0), gradient f32/bf16 within the "
+            f"bound (max |diff| {worst:.3g}), NaNs in the plain version's places")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1362,6 +1440,96 @@ def int8_serving(device):
     return {k: v[3] for k, v in results.items()}
 
 
+# ---------------------------------------------------------------- phase 8
+
+
+def probe_phase(device):
+    """8: the three probe kernels against their plain versions at the TPU
+    scripts' sizes, then the probes' entry points with the launch counters
+    read around them. Each kernel row sums its cases or variants."""
+    import torch
+
+    from objectdetection_torch.probes import patch_dma, roi_dispatch, roi_inner
+
+    blank = lambda: {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                     "max_abs_err": 0.0, "library_ms": None}
+    p1, p2, p3 = blank(), blank(), blank()
+    p1["library_ms"] = 0.0
+    src = patch_dma.make_source(device=device)
+    for n, p in patch_dma.CASES:
+        i, y, xq = patch_dma.make_indices(n, p, device=device)
+        got = patch_dma.patch_dma(src, i, y, xq, p)
+        want = patch_dma.patch_dma_plain(src, i, y, xq, p)
+        tol = patch_dma.tolerance(src, i, y, xq)
+        err = (got.double() - want.double()).abs()
+        if not bool((err <= tol).all()):
+            fail(f"patch_dma n={n} p={p}: |kernel - plain| {float(err.max())} beyond "
+                 f"n·2^-24·Σ|x| ({float(tol.min())} at least)")
+        ms = device_ms(lambda: patch_dma.patch_dma(src, i, y, xq, p), 10)
+        plain_ms = time_ms(lambda: patch_dma.patch_dma_plain(src, i, y, xq, p), 3, warmup=1)
+        lib_ms = time_ms(lambda: patch_dma.library_call(src, i, y, xq, p), 3, warmup=1)
+        b_ms = patch_dma.patch_bytes(n, p, src.shape[-1]) / PEAK_BYTES * 1e3
+        p1["ms"] += ms
+        p1["plain_ms"] += plain_ms
+        p1["library_ms"] += lib_ms
+        p1["bytes_ms"] += b_ms
+        p1["ops_ms"] += n * src.shape[-1] / PEAK_F32 * 1e3
+        p1["max_abs_err"] = max(p1["max_abs_err"], float(err.max()))
+        log(f"patch_dma rois={n} patch={p}: |kernel - plain| {float(err.max()):.3g} within "
+            f"n·2^-24·Σ|x|; kernel {ms:.4f} ms device ({n * p * p * 512 / ms / 1e6:.1f} GB/s of "
+            f"patches), plain {plain_ms:.3f} ms, library gather {lib_ms:.3f} ms; bound "
+            f"{b_ms:.4f} ms")
+    del src
+    cases = ((roi_inner, p2, roi_inner.VARIANTS, lambda v: roi_inner.make_inputs(device=device),
+              roi_inner.roi_inner, roi_inner.roi_inner_plain),
+             (roi_dispatch, p3, roi_dispatch.VARIANTS,
+              lambda v: roi_dispatch.make_inputs(v, device=device), roi_dispatch.roi_dispatch,
+              roi_dispatch.roi_dispatch_plain))
+    for mod, rec, variants, inputs, kernel, plain in cases:
+        args = None
+        for v in variants:
+            if args is None or mod is roi_dispatch:
+                args = inputs(v)
+            got = kernel(*args, v)
+            want = plain(*args, v)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                fail(f"{mod.__name__} {v}: kernel not bit-equal to plain ({bad} values)")
+            del got, want
+            ms = device_ms(lambda: kernel(*args, v), 5)
+            plain_ms = time_ms(lambda: plain(*args, v), 1, warmup=0)
+            n = args[0].shape[0]
+            if mod is roi_dispatch:
+                byt, f32_ops, mm_ops = mod.work(n, v, args[-1].numel())
+            else:
+                byt, f32_ops, mm_ops = mod.work(n, v)
+            b_ms = byt / PEAK_BYTES * 1e3
+            o_ms = (f32_ops / PEAK_F32 + mm_ops / PEAK_BF16) * 1e3
+            rec["ms"] += ms
+            rec["plain_ms"] += plain_ms
+            rec["bytes_ms"] += b_ms
+            rec["ops_ms"] += o_ms
+            log(f"{mod.__name__.rsplit('.', 1)[-1]} {v} n={n}: kernel == plain; kernel {ms:.4f} ms "
+                f"device ({1000 * ms / n:.4f} us/ROI), plain {plain_ms:.1f} ms; bound "
+                f"{max(b_ms, o_ms):.4f} ms (bytes {b_ms:.4f}, operations {o_ms:.4f})")
+        del args
+
+    # the entry points, as a user runs them, with the counters read around them
+    patch_dma.launches = roi_inner.launches = roi_dispatch.launches = 0
+    patch_dma.main(["--iters", "2"])
+    for v in roi_inner.VARIANTS:
+        roi_inner.main(["--variant", v, "--iters", "2"])
+    for v in roi_dispatch.VARIANTS:
+        roi_dispatch.main(["--variant", v, "--iters", "2"])
+    launches = {"patch_dma_probe": patch_dma.launches, "roi_inner_probe": roi_inner.launches,
+                "roi_dispatch_probe": roi_dispatch.launches}
+    if min(launches.values()) == 0:
+        fail(f"probe entry points missed a kernel: {launches}")
+    log(f"probe entry points: launches {launches}")
+    return {"patch_dma_probe": p1, "roi_inner_probe": p2, "roi_dispatch_probe": p3}, launches
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1392,6 +1560,8 @@ def main() -> None:
     served = int8_serving(device)
     launches["fused_block"] = served["int8-fused"]["launches"]["fused_block"]
     launches["roi_align_int8"] = served["int8-default"]["launches"]["roi_align_int8"]
+    probe_recs, probe_launches = probe_phase(device)
+    launches.update(probe_launches)
 
     kernels = []
     for name, rec, source, replaces in (
@@ -1407,6 +1577,12 @@ def main() -> None:
          "objectdetection_tpu/ops/roi_align_pallas.py:104"),
         ("fused_block", block_rec, "objectdetection_torch/csrc/fused_block.cu",
          "objectdetection_tpu/ops/fused_block.py:98"),
+        ("patch_dma_probe", probe_recs["patch_dma_probe"],
+         "objectdetection_torch/csrc/roi_probes.cu", "benchmarks/patch_dma_probe.py:30"),
+        ("roi_inner_probe", probe_recs["roi_inner_probe"],
+         "objectdetection_torch/csrc/roi_probes.cu", "benchmarks/roi_inner_probe.py:39"),
+        ("roi_dispatch_probe", probe_recs["roi_dispatch_probe"],
+         "objectdetection_torch/csrc/roi_probes.cu", "benchmarks/roi_dispatch_probe.py:61"),
     ):
         bytes_ms, ops_ms = rec["bytes_ms"], rec["ops_ms"]
         kernels.append({

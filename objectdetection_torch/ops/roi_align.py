@@ -34,7 +34,17 @@ The int8 serving path adds two epilogues, as the Pallas kernel takes them
 Both variants are inference only. The kernel and the plain version compute
 the same f32 operations in the same order, so they are bit-equal; zero boxes
 need no fill, as they sample the P2 corner, which the map quantizes as the
-Pallas kernel's zero-row fill does (roi_align_pallas.py:809-830).
+Pallas kernel's zero-row fill does (roi_align_pallas.py:809-830). A NaN
+value quantizes to code 0, as XLA converts NaN to an integer.
+
+Samples outside the map read what JAX's gather reads (the kernels too):
+``floor(coord)`` converts as XLA converts (NaN → 0, saturated to int32), the
+lower corner ``i1 = min(i0 + 1, size - 1)`` is not clipped below, the table
+index ``row0 + y·W + x`` is int32 arithmetic that wraps, and ``jnp.take``
+wraps a negative index once by the table's length and reads NaN for what is
+still outside (its gradient drops those). So a sample more than a pixel
+above or left of its map reads a row of the previous image or level, or,
+for image 0 at P2, of the end of the table.
 """
 
 from __future__ import annotations
@@ -83,16 +93,29 @@ def roi_levels(
         _canonical_scale(image_area, canonical_size), boxes
     )
     log2 = torch.log(scale) / _f32(LN2, boxes)
-    lvl = canonical_level + torch.round(log2).to(torch.int64)
+    lvl = _wrap32(canonical_level + xla_to_int32(torch.round(log2)))
     lvl = torch.where(area > 0, lvl, torch.full_like(lvl, min_level))
     return torch.clamp(lvl, min_level, max_level)
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values as int32 arithmetic that wraps (XLA's) leaves them."""
+    return torch.remainder(x + 2**31, 2**32) - 2**31
+
+
+def xla_to_int32(f: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 → s32 convert (``astype(int32)``), as int64: truncation,
+    NaN → 0, saturated to [-2^31, 2^31 - 1] (torch's own cast is undefined
+    there)."""
+    f = torch.where(torch.isnan(f), torch.zeros_like(f), f)
+    return torch.clamp(f.clamp(-2.0**31, 2.0**31).to(torch.int64), max=2**31 - 1)
 
 
 def _bilinear_weights_1d(coord: torch.Tensor, size: torch.Tensor):
     i0 = torch.floor(coord)
     w1 = coord - i0
-    i0 = i0.to(torch.int64)
-    i1 = torch.minimum(i0 + 1, size - 1)
+    i0 = xla_to_int32(i0)
+    i1 = torch.minimum(_wrap32(i0 + 1), size - 1)  # not clipped below, as in JAX
     i0 = torch.minimum(torch.clamp(i0, min=0), size - 1)
     return i0, i1, w1
 
@@ -143,7 +166,11 @@ def crop_and_resize(image: torch.Tensor, boxes: torch.Tensor, crop_size) -> torc
 def _corners(level_hw, boxes, image_shape, crop_size):
     """Bilinear corners of every sample: four (flat-table rows [N], f32
     weights [N]) pairs, N = B·R·ph·pw, for levels of the given (H, W) whose
-    [B, H, W, C] maps are flattened and concatenated level after level."""
+    [B, H, W, C] maps are flattened and concatenated level after level. A
+    row is JAX's index after ``jnp.take`` wrapped it (module doc), or -1
+    where it lies outside the table (JAX reads NaN there; from indices
+    clipped to ``size - 1`` that takes int32 wrap-around of a saturated
+    coordinate)."""
     b, r = boxes.shape[:2]
     ph, pw = crop_size
     dev = boxes.device
@@ -151,6 +178,7 @@ def _corners(level_hw, boxes, image_shape, crop_size):
     widths = torch.tensor([w for _, w in level_hw], device=dev)
     sizes = heights * widths
     level_base = torch.cumsum(sizes * b, 0) - sizes * b
+    table = int(sizes.sum()) * b
 
     boxes = boxes.to(torch.float32)
     li = roi_levels(boxes, float(image_shape[0] * image_shape[1]),
@@ -176,8 +204,10 @@ def _corners(level_hw, boxes, image_shape, crop_size):
     n = b * r * ph * pw
 
     def flat_idx(yi, xi):
-        return (row0[..., None, None] + yi[..., :, None] * lw[..., None, None]
-                + xi[..., None, :]).reshape(-1)
+        t = _wrap32(row0[..., None, None] + yi[..., :, None] * lw[..., None, None]
+                    + xi[..., None, :]).reshape(-1)
+        t = torch.where(t < 0, t + table, t)
+        return torch.where((t >= 0) & (t < table), t, torch.full_like(t, -1))
 
     def wprod(a, b_):
         return (a[..., :, None] * b_[..., None, :]).reshape(n)
@@ -194,7 +224,7 @@ def touched_rows(features: Sequence[torch.Tensor], boxes, image_shape, crop_size
     """Distinct feature rows (C values each) that the samples of `boxes` need:
     corners with a nonzero bilinear weight."""
     corners = _corners([f.shape[1:3] for f in features], boxes, image_shape, crop_size)
-    rows = torch.cat([rows[w != 0] for rows, w in corners])
+    rows = torch.cat([rows[(w != 0) & (rows >= 0)] for rows, w in corners])
     return int(torch.unique(rows).numel())
 
 
@@ -240,18 +270,24 @@ def batched_multilevel_roi_align_plain(
         m = epilogue_map(out_quant, in_scale, crop_size, v.shape[-1], v.device)
         if out_quant is None:
             return (v * m).to(torch.bfloat16)
-        return torch.clamp(torch.round(v.to(torch.float32) * m), -128.0, 127.0).to(torch.int8)
+        q = torch.clamp(torch.round(v.to(torch.float32) * m), -128.0, 127.0)
+        return torch.where(torch.isnan(q), torch.zeros_like(q), q).to(torch.int8)
     b, r = boxes.shape[:2]
     c = features[0].shape[-1]
     flat = torch.cat([f.reshape(-1, c) for f in features], dim=0)
     dtype = flat.dtype
     corners = _corners([f.shape[1:3] for f in features], boxes, image_shape, crop_size)
+
+    def take(rows):  # jnp.take's fill: NaN outside the table, no gradient there
+        got = flat[rows.clamp(min=0)]
+        return torch.where((rows >= 0)[:, None], got, torch.full_like(got, math.nan))
+
     (r00, w00), (r01, w01), (r10, w10), (r11, w11) = corners
     out = (
-        flat[r00] * w00[:, None].to(dtype)
-        + flat[r01] * w01[:, None].to(dtype)
-        + flat[r10] * w10[:, None].to(dtype)
-        + flat[r11] * w11[:, None].to(dtype)
+        take(r00) * w00[:, None].to(dtype)
+        + take(r01) * w01[:, None].to(dtype)
+        + take(r10) * w10[:, None].to(dtype)
+        + take(r11) * w11[:, None].to(dtype)
     )
     return out.reshape(b, r, *crop_size, c)
 
@@ -272,6 +308,8 @@ def _check_pyramid(shapes, dtypes, devices, boxes, crop_size):
     ph, pw = crop_size
     if four != 4 or not (1 <= ph <= _MAX_POOL and 1 <= pw <= _MAX_POOL):
         raise ValueError(f"roi_align kernel: bad boxes {boxes.shape} or crop {crop_size}")
+    if sum(s[0] * s[1] * s[2] for s in shapes) >= 2**31:
+        raise ValueError("roi_align kernel: the pyramid's rows overflow JAX's int32 table index")
 
 
 def _level_dims(shapes):
@@ -508,7 +546,8 @@ def backward_tolerance(
     rows = sum(sh[0] * sh[1] * sh[2] for sh in shapes)
     count = torch.zeros(rows, dtype=torch.int64, device=boxes.device)
     for r, w in corners:
-        count.index_add_(0, r[w != 0], torch.ones_like(r[w != 0]))
+        hit = r[(w != 0) & (r >= 0)]
+        count.index_add_(0, hit, torch.ones_like(hit))
     if against_f32:
         gamma = 2.0 ** -7 + _gamma(2 * count + 8, 2.0 ** -24)
     elif grad_out.dtype == torch.bfloat16:

@@ -14,7 +14,10 @@ f32 atomics, so it is held elementwise within
 version), and in bf16 also within its bound of the f32 backward. The int8
 serving kernels (ROIAlign's int8 epilogues, the fused int8 bottleneck block)
 and the integer product (``torch._int_mm`` behind ``quant.int8_matmul``) are
-held bit-equal.
+held bit-equal. On boxes outside the map (a NaN box, boxes whose table
+index wraps) the three ROIAlign kernels are held the same way, with NaNs in
+the plain version's places. The ROIAlign design probes (P1-P3) are held at
+small sizes: P1 within ``patch_dma.tolerance``, P2 and P3 bit-equal.
 """
 
 import numpy as np
@@ -23,6 +26,7 @@ import torch
 
 from objectdetection_torch import quant
 from objectdetection_torch.ops import anchor_match, fused_block, nms, roi_align
+from objectdetection_torch.probes import patch_dma, roi_dispatch, roi_inner
 
 pytestmark = pytest.mark.cuda
 
@@ -201,3 +205,74 @@ def test_int8_matmul_is_exact_on_the_card(cuda):
         assert got.dtype == torch.int32
         want = a.astype(np.int64) @ b.astype(np.int64)
         np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def same(a, b):
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return torch.equal(nan_a, nan_b) and torch.equal(a[~nan_a], b[~nan_b])
+
+
+def test_roi_align_kernels_outside_the_map_match_plain(cuda):
+    gen = torch.Generator().manual_seed(8)
+    c = 64
+    nan = float("nan")
+    # a NaN box; image 0 left of and above P2 (the table index wraps to the
+    # end of the table); image 1 above its map (reads image 0's rows)
+    boxes = torch.tensor([[[nan] * 4, [-0.2, -0.2, 0.1, 0.1], [0.1, 0.1, 0.5, 0.6]],
+                          [[-0.6, 0.2, -0.3, 0.5], [-0.5, -0.7, -0.1, -0.2],
+                           [0.0, 0.0, 1.0, 1.0]]], device=cuda)
+    f32 = [torch.randn(2, s, s, c, generator=gen).to(cuda) for s in (64, 32, 16, 8)]
+    shapes = [tuple(f.shape) for f in f32]
+    for crop in ((7, 7), (14, 14)):
+        got = roi_align.batched_multilevel_roi_align(f32, boxes, (256, 256), crop)
+        want = roi_align.batched_multilevel_roi_align_plain(f32, boxes, (256, 256), crop)
+        assert same(got, want) and bool(torch.isnan(want[0, 0]).all())
+        assert bool(torch.isfinite(want[:, 1:]).all())
+        s_out = (torch.rand(*crop, c, generator=gen) * 3 + 0.5).to(cuda)
+        bf = [f.to(torch.bfloat16) for f in f32]
+        got = roi_align.batched_multilevel_roi_align(bf, boxes, (256, 256), crop, out_quant=s_out)
+        want = roi_align.batched_multilevel_roi_align_plain(bf, boxes, (256, 256), crop,
+                                                            out_quant=s_out)
+        assert torch.equal(got, want) and not bool(got[0, 0].any())
+        grad_out = torch.randn(2, 3, *crop, c, generator=gen).to(cuda)
+        got = roi_align.roi_align_backward(grad_out, boxes, shapes, (256, 256))
+        want = roi_align.roi_align_backward_plain(grad_out, boxes, shapes, (256, 256))
+        tol = roi_align.backward_tolerance(grad_out, boxes, shapes, (256, 256))
+        for g, w, t in zip(got, want, tol):
+            fin = ~torch.isnan(w)
+            assert torch.equal(torch.isnan(g), ~fin)
+            assert bool(((g.double() - w.double()).abs() <= t)[fin].all())
+
+
+def test_patch_dma_kernel_matches_plain(cuda):
+    src = patch_dma.make_source((4, 64, 64, 256), cuda)
+    for n, p in ((500, 16), (300, 8), (40, 32)):
+        i, y, xq = patch_dma.make_indices(n, p, (4, 64, 64, 256), cuda)
+        before = patch_dma.launches
+        got = patch_dma.patch_dma(src, i, y, xq, p)
+        assert patch_dma.launches == before + 1
+        want = patch_dma.patch_dma_plain(src, i, y, xq, p)
+        assert bool(((got - want).abs() <= patch_dma.tolerance(src, i, y, xq)).all())
+
+
+@pytest.mark.parametrize("variant", roi_inner.VARIANTS)
+def test_roi_inner_kernel_matches_plain(cuda, variant):
+    args = roi_inner.make_inputs(320, cuda)
+    before = roi_inner.launches
+    got = roi_inner.roi_inner(*args, variant)
+    assert roi_inner.launches == before + 1
+    assert torch.equal(got, roi_inner.roi_inner_plain(*args, variant))
+
+
+@pytest.mark.parametrize("variant", roi_dispatch.VARIANTS)
+def test_roi_dispatch_kernel_matches_plain(cuda, variant):
+    args = roi_dispatch.make_inputs(variant, 320, cuda)
+    before = roi_dispatch.launches
+    got = roi_dispatch.roi_dispatch(*args, variant)
+    assert roi_dispatch.launches == before + 1
+    assert torch.equal(got, roi_dispatch.roi_dispatch_plain(*args, variant))
+    meta = args[0].clone()
+    meta[3, 0, 1], meta[3, 0, 2] = 3, 1  # outside the combos
+    if variant != "bare":
+        with pytest.raises(ValueError, match="combos"):
+            roi_dispatch.roi_dispatch(meta, *args[1:], variant)
