@@ -9,7 +9,10 @@ and prints no result:
 1. card and build: the card's name and power limit, build of every kernel
    under objectdetection_torch/csrc/ (one nvcc per source, in parallel);
    TF32 is turned off for the comparisons;
-2. NMS kernel against its plain version at the two main-path shapes;
+2. NMS kernels against their plain version, survivor tables identical, at
+   the two serving shapes (6000 -> 1000 proposals, 1000 -> 100 detections,
+   summed in the kernel line), the training shape (6000 -> 2000) and a
+   sparse 6000 -> 1000 whose budget stops the sweep after a few tiles;
 3. ROIAlign kernel against its plain version at the COCO pyramid shapes, f32
    (bit-equal) and bf16 (stated tolerance), box stage and mask stage; then
    on boxes outside the map (a NaN box, a box left of and above image 0's P2
@@ -100,6 +103,16 @@ TRAIN_STEPS = 5  # bf16 training steps of phase 6
 # leaves at the same order (measured worst: 1.35e-5 on an H100).
 GRAD_REL = 2e-4
 TOP = 12  # largest device kernels listed from the profiled batch
+# phase 2's NMS cases: (name, N, classes, class -1 padded rows, clusters, IoU
+# threshold, budget, on the serving path). The serving path's two make the
+# kernel line's record; the training shape (proposal_layer(training=True))
+# and a sparse one, whose budget stops the sweep after a few tiles, are logged.
+NMS_CASES = (
+    ("proposals", 6000, 1, 0, 12, 0.7, 1000, True),
+    ("detections", 1000, 81, 24, 12, 0.3, 100, True),
+    ("training", 6000, 1, 0, 12, 0.7, 2000, False),
+    ("proposals-sparse", 6000, 1, 0, 600, 0.7, 1000, False),
+)
 TRAIN_KERNELS = ("nms", "roi_align", "roi_align_backward", "anchor_match")
 # the ResNet stages at 1024² (H, W, C3, C1) and their identity blocks in R101
 STAGES = ((256, 256, 256, 64), (128, 128, 512, 128), (64, 64, 1024, 256), (32, 32, 2048, 512))
@@ -190,14 +203,15 @@ def card_and_build():
 # ---------------------------------------------------------------- phase 2
 
 
-def nms_inputs(gen, n: int, num_classes: int, pads: int, device):
-    """Score-sorted canonical boxes with clusters, duplicates, zero-area and
-    all-zero rows; class ids in [0, num_classes) and -1 on the padded tail."""
+def nms_inputs(gen, n: int, num_classes: int, pads: int, device, clusters: int = 12):
+    """Score-sorted canonical boxes around ``clusters`` centres, with
+    duplicates, zero-area and all-zero rows; class ids in [0, num_classes)
+    and -1 on the padded tail."""
     import torch
 
     b = BATCH
-    centers = torch.rand(b, 12, 2, generator=gen)
-    pick = torch.randint(0, 12, (b, n), generator=gen)
+    centers = torch.rand(b, clusters, 2, generator=gen)
+    pick = torch.randint(0, clusters, (b, n), generator=gen)
     ctr = torch.gather(centers, 1, pick[..., None].expand(b, n, 2))
     ctr = ctr + 0.03 * torch.randn(b, n, 2, generator=gen)
     size = 0.02 + 0.25 * torch.rand(b, n, 2, generator=gen)
@@ -213,6 +227,15 @@ def nms_inputs(gen, n: int, num_classes: int, pads: int, device):
         boxes[:, n - pads:] = 0.0
         cls[:, n - pads:] = -1
     return boxes.to(device).contiguous(), cls.to(device).contiguous()
+
+
+def nms_case_inputs(device):
+    """The inputs of NMS_CASES, drawn in order from one seeded generator."""
+    import torch
+
+    gen = torch.Generator().manual_seed(1)
+    return [nms_inputs(gen, n, k, pads, device, clusters)
+            for _, n, k, pads, clusters, *_ in NMS_CASES]
 
 
 def nms_ops(table: "torch.Tensor", cls: "torch.Tensor", budget_rows: int) -> float:
@@ -250,27 +273,27 @@ def nms_phase(device):
 
     from objectdetection_torch.ops import nms
 
-    gen = torch.Generator().manual_seed(1)
-    stages = [
-        ("proposals", 6000, 1, 0, 0.7, 1000),
-        ("detections", 1000, 81, 24, 0.3, 100),
-    ]
     rec = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0,
            "library_ms": None}
-    for name, n, k, pads, thr, budget in stages:
-        boxes, cls = nms_inputs(gen, n, k, pads, device)
+    for (name, n, _, _, clusters, thr, budget, serving), (boxes, cls) in zip(
+            NMS_CASES, nms_case_inputs(device)):
         out_k = nms.suppress(boxes, cls, thr, budget)
         out_p = nms.suppress_plain(boxes, cls, thr, budget)
         torch.cuda.synchronize()
         if not torch.equal(out_k, out_p):
             bad = int(((out_k != 0).any(-1) != (out_p != 0).any(-1)).sum())
             fail(f"nms {name}: kernel survivor table differs from plain ({bad} rows)")
-        rec["max_abs_err"] = max(rec["max_abs_err"], float((out_k - out_p).abs().max()))
         survivors = int((out_k != 0).any(-1).sum())
-        ev_ms = time_ms(lambda: nms.suppress(boxes, cls, thr, budget), 50)
-        ms = device_ms(lambda: nms.suppress(boxes, cls, thr, budget))
-        plain_ms = time_ms(lambda: nms.suppress_plain(boxes, cls, thr, budget), 3, warmup=1)
         rows = stop_row(out_p, nms.TILE, budget)
+        ms = device_ms(lambda: nms.suppress(boxes, cls, thr, budget))
+        if not serving:
+            log(f"nms {name}: B={BATCH} N={n} {clusters} clusters thr={thr} budget={budget}: "
+                f"kernel == plain ({survivors} survivors, {rows} rows resolved); kernel "
+                f"{ms:.4f} ms device")
+            continue
+        rec["max_abs_err"] = max(rec["max_abs_err"], float((out_k - out_p).abs().max()))
+        ev_ms = time_ms(lambda: nms.suppress(boxes, cls, thr, budget), 50)
+        plain_ms = time_ms(lambda: nms.suppress_plain(boxes, cls, thr, budget), 3, warmup=1)
         bytes_ = BATCH * n * (16 + 4 + 16)
         ops = nms_ops(out_p, cls, rows)
         rec["ms"] += ms

@@ -74,15 +74,12 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
-        if self.padding is not None:
-            pad = self.padding
-        elif self.stride == 1:
-            pad = (k - 1) // 2  # SAME, odd kernel, stride 1
-        else:
-            assert k == 1, "SAME stride-2 convs are 1×1 here (no padding)"
-            pad = 0
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        stride=self.stride, padding=pad)
+        t, b, l, r = Q.conv_pads(self.padding, x.shape[2], x.shape[3], k, self.stride)
+        w, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if t == b and l == r:
+            return F.conv2d(x, w, bias, stride=self.stride, padding=(t, l))
+        # SAME at a stride > 1 pads the odd row and column at the high end
+        return F.conv2d(F.pad(x, (l, r, t, b)), w, bias, stride=self.stride)
 
 
 def max_pool_same(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:

@@ -70,7 +70,8 @@ class MaskRCNN(nn.Module):
                                  quant=quant_spec(cfg, cfg.quantize_rpn))
         self.mrcnn = BoxClassHead(cfg.num_classes, cfg.pool_shape[0], c,
                                   quant=quant_spec(cfg, cfg.quantize_box_head))
-        self.mrcnn_mask = MaskHead(cfg.num_classes, c,
+        # the mask head is 256 wide whatever the FPN's width, as in the flax model
+        self.mrcnn_mask = MaskHead(cfg.num_classes, 256, cin=c,
                                    quant=quant_spec(cfg, cfg.quantize_mask_head))
         if cfg.pool_shape[0] != cfg.pool_shape[1]:
             raise ValueError("pool_shape must be square")

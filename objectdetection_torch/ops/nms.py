@@ -7,7 +7,8 @@ counterpart is ``csrc/nms.cu``. Inputs carry an explicit batch dimension.
 
 :func:`suppress` is the kernel's contract: score-sorted boxes [B, N, 4] and
 class ids [B, N] in, the same box table out with dead rows zeroed. It launches
-the kernel for a CUDA tensor and runs :func:`suppress_plain` for a CPU tensor.
+the two kernels of ``csrc/nms.cu`` (the pairwise kill bits, then the greedy
+sweep) for a CUDA tensor and runs :func:`suppress_plain` for a CPU tensor.
 Rows are resolved in tiles of :data:`TILE` rows, and the pass stops after the
 tile in which the count of nonzero survivors reaches ``budget`` (rows after it
 read as suppressed), which is what ``nms_suppress_pallas`` returns at its
@@ -24,11 +25,15 @@ import torch
 from objectdetection_torch.ops import cuda_build
 
 TILE = 256
-# shared memory holds budget + TILE survivor rows (20 B each) beside ~14 KB
-# of static tables: 227 KB per block caps the budget
-MAX_BUDGET = 10_000
+CHUNK = 64  # rows per 64-bit word of the kernels' pairwise kill bits
+# the kill bits take N * ceil(N / 64) words of scratch per image and the sweep
+# holds one row of words in shared memory: 16,384 rows (256 words, 32 MB of
+# scratch per image) is the most the kernels take
+MAX_ROWS = 16_384
 
-launches = 0  # kernel launches of `suppress` (never counts the plain version)
+# `suppress` calls that launched the kernels: one per call, though each call
+# launches two kernels (the plain version never counts)
+launches = 0
 
 
 class NMSResult(NamedTuple):
@@ -108,7 +113,9 @@ def suppress(
     sorted_boxes [B, N, 4] f32 (descending score, invalid rows zeroed,
     corners canonicalized), class_ids [B, N] int32. Returns [B, N, 4] with
     suppressed rows zeroed. ``budget``: stop once that many nonzero survivors
-    exist (at tile granularity); None keeps every survivor.
+    exist (at tile granularity); None keeps every survivor. On the card N is
+    at most :data:`MAX_ROWS` (the kernels' N² / 8 bytes of scratch per image);
+    above it this raises ``ValueError``.
     """
     if sorted_boxes.device.type == "cpu":
         return suppress_plain(sorted_boxes, class_ids, iou_threshold, budget)
@@ -117,24 +124,26 @@ def suppress(
     b, n, four = sorted_boxes.shape
     if four != 4 or class_ids.shape != (b, n):
         raise ValueError(f"nms: bad shapes {sorted_boxes.shape}, {class_ids.shape}")
+    if n > MAX_ROWS:
+        raise ValueError(f"nms kernel: {n} rows > {MAX_ROWS}")
     budget = n if budget is None else min(int(budget), n)
-    if budget > MAX_BUDGET:
-        raise ValueError(f"nms kernel: budget {budget} > {MAX_BUDGET}")
     boxes = sorted_boxes.to(torch.float32).contiguous()
     cls = class_ids.to(device=boxes.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(boxes)
     if b == 0 or n == 0:
         return out
+    # only the upper triangle of 64-row chunks is written and read
+    kill_bits = torch.empty((b, n, -(-n // CHUNK)), dtype=torch.int64, device=boxes.device)
     global launches
     lib = cuda_build.load("nms")
     fn = lib.nms_suppress
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     with torch.cuda.device(boxes.device):
-        status = fn(boxes.data_ptr(), cls.data_ptr(), out.data_ptr(), b, n,
-                    float(iou_threshold), budget, stream)
+        status = fn(boxes.data_ptr(), cls.data_ptr(), out.data_ptr(), kill_bits.data_ptr(),
+                    b, n, float(iou_threshold), budget, stream)
     cuda_build.check(status, "nms_suppress")
     launches += 1
     return out

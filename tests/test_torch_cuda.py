@@ -44,19 +44,76 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def test_nms_kernel_matches_plain(cuda):
-    rng = np.random.RandomState(0)
-    ctr = rng.uniform(0.2, 0.8, (3, 1500, 2))
-    hw = rng.uniform(0.02, 0.3, (3, 1500, 2))
-    boxes = torch.tensor(np.concatenate([ctr - hw / 2, ctr + hw / 2], -1),
-                         dtype=torch.float32, device=cuda)
+def nms_case(n, num_classes, seed=0):
+    """Two images of n rows around a few clusters, with exact duplicates,
+    zero-area rows, all-zero rows of a real class, and a class -1 all-zero
+    padded tail."""
+    rng = np.random.RandomState(seed)
+    ctr = rng.uniform(0.2, 0.8, (2, 6, 2))
+    pick = rng.randint(0, 6, (2, n))
+    c = np.take_along_axis(ctr, pick[..., None].repeat(2, -1), 1)
+    c = c + rng.normal(0, 0.03, (2, n, 2))
+    hw = rng.uniform(0.02, 0.3, (2, n, 2))
+    boxes = np.concatenate([c - hw / 2, c + hw / 2], -1).astype(np.float32)
+    for i, j in zip(*np.nonzero(rng.rand(2, n) < 0.05)):
+        boxes[i, j] = boxes[i, j - 1]  # an exact duplicate of the row before
+    flat = rng.rand(2, n) < 0.03
+    boxes[..., 2][flat] = boxes[..., 0][flat]
     boxes[:, ::17] = 0.0
-    cls = torch.tensor(rng.randint(-1, 4, (3, 1500)), dtype=torch.int32, device=cuda)
-    for thr, budget in ((0.7, 300), (0.3, None), (0.5, 1)):
-        before = nms.launches
-        got = nms.suppress(boxes, cls, thr, budget)
-        assert nms.launches == before + 1
-        assert torch.equal(got, nms.suppress_plain(boxes, cls, thr, budget))
+    cls = rng.randint(0, num_classes, (2, n)).astype(np.int32)
+    pads = n // 8
+    if pads:
+        boxes[:, n - pads:] = 0.0
+        cls[:, n - pads:] = -1
+    return torch.from_numpy(boxes), torch.from_numpy(cls)
+
+
+@pytest.mark.parametrize("num_classes", [1, 81])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 257, 1500, 6000])
+def test_nms_kernel_matches_plain(cuda, n, num_classes):
+    boxes, cls = nms_case(n, num_classes)
+    boxes, cls = boxes.to(cuda), cls.to(cuda)
+    for thr in (0.0, 0.3, 0.7, -0.1):  # -0.1: kept all-zero rows kill in their tile
+        # a budget the survivor count reaches in mid-tile (after row n // 2)
+        full = nms.suppress_plain(boxes, cls, thr)
+        mid = int((full[0, :n // 2 + 1] != 0).any(-1).sum())
+        for budget in (max(mid, 1), None, 1):
+            before = nms.launches
+            got = nms.suppress(boxes, cls, thr, budget)
+            assert nms.launches == before + 1
+            assert torch.equal(got, nms.suppress_plain(boxes, cls, thr, budget)), (thr, budget)
+
+
+@pytest.mark.parametrize("thr", [0.3, 0.5, 0.7])
+def test_nms_kernel_matches_plain_near_the_threshold(cuda, thr):
+    # pairs (box, the same box narrowed to IoU ~ thr * (1 + e)), each pair its
+    # own class: e spans both sides of the kernel's 2^-16 shortcut margin and
+    # the last few ulps, where only the rounded division decides
+    rng = np.random.RandomState(9)
+    e = np.concatenate([[0.0], np.logspace(-24, -12, 97, base=2.0)])
+    e = np.concatenate([e, -e, rng.uniform(-2.0 ** -15, 2.0 ** -15, 200)])
+    y1x1 = rng.uniform(0.0, 0.5, (e.size, 2))
+    hw = rng.uniform(0.01, 0.5, (e.size, 2))
+    first = np.concatenate([y1x1, y1x1 + hw], -1)
+    second = first.copy()
+    second[:, 3] = second[:, 1] + hw[:, 1] * thr * (1 + e)
+    boxes = torch.tensor(np.stack([first, second], 1).reshape(1, -1, 4), dtype=torch.float32)
+    cls = torch.arange(e.size, dtype=torch.int32).repeat_interleave(2)[None]
+    boxes, cls = boxes.to(cuda), cls.to(cuda)
+    want = nms.suppress_plain(boxes, cls, thr)
+    killed = int((want[0, 1::2] == 0).all(-1).sum())
+    assert 0 < killed < e.size  # both sides of the threshold occur
+    assert torch.equal(nms.suppress(boxes, cls, thr), want)
+
+
+def test_nms_kernel_raises_above_its_row_limit(cuda):
+    rows = nms.MAX_ROWS + 1
+    boxes = torch.zeros(1, rows, 4, device=cuda)
+    cls = torch.zeros(1, rows, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="rows"):
+        nms.suppress(boxes, cls, 0.5)
+    assert torch.equal(nms.suppress(boxes[:, :-1], cls[:, :-1], 0.5, 10),
+                       torch.zeros(1, rows - 1, 4, device=cuda))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

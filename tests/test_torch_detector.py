@@ -44,12 +44,16 @@ SMALL = dict(
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-@pytest.fixture(scope="module")
-def weights():
-    jcfg = J_SHAPES.replace(**SMALL)
+def _weights(**overrides):
+    jcfg = J_SHAPES.replace(**SMALL, **overrides)
     variables = jdet.init_variables(jcfg, jax.random.PRNGKey(42))
     np_vars = jax.tree.map(np.asarray, variables)
     return variables, flax_to_state_dict(np_vars)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return _weights()
 
 
 def _images(seed=123):
@@ -111,6 +115,35 @@ def test_forward_inference_matches_jax_all_detections(weights):
     jres, jint, tres, tint = _run_both(weights, detection_min_threshold=0.0)
     assert int(np.asarray(jres.valid).sum()) > 0  # detections and masks carry rows
     _check(jres, jint, tres, tint)
+
+
+def _check_tight(jres, jint, tres, tint):
+    """Off-default configs at the tolerances the repairs were measured to
+    meet: RPN logits within 1e-5, proposals, boxes and masks within 1e-6."""
+    _check(jres, jint, tres, tint)
+    assert int(np.asarray(jres.valid).sum()) > 0
+    np.testing.assert_allclose(tint["rpn_class_logits"].numpy(),
+                               np.asarray(jint["rpn_class_logits"]), rtol=0, atol=1e-5)
+    for got, want in ((tint["proposals"], jint["proposals"]), (tres.boxes, jres.boxes),
+                      (tres.masks, jres.masks)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+
+
+def test_strided_rpn_conv_matches_jax(weights):
+    # the RPN's shared 3×3 conv at stride 2 pads as flax "SAME" does (the odd
+    # row and column at the high end)
+    jres, jint, tres, tint = _run_both(weights, rpn_anchor_stride=2,
+                                       detection_min_threshold=0.0)
+    assert tint["rpn_class_logits"].shape == jint["rpn_class_logits"].shape
+    _check_tight(jres, jint, tres, tint)
+
+
+def test_narrow_fpn_matches_jax():
+    # the mask head stays 256 wide when the FPN is narrower, as in the flax model
+    narrow = _weights(fpn_channels=64)
+    tdet.check_state(narrow[1], T_SHAPES.replace(**SMALL, fpn_channels=64))
+    assert tuple(narrow[1]["mrcnn_mask.mrcnn_mask_conv1.weight"].shape) == (256, 64, 3, 3)
+    _check_tight(*_run_both(narrow, fpn_channels=64, detection_min_threshold=0.0))
 
 
 def test_make_infer_fn_cpu_matches_forward(weights):
