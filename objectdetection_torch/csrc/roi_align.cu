@@ -29,48 +29,61 @@
 // the direct addressing; any other block resolves each corner's table index
 // to (level, row) from the level sizes.
 //
-// What bounds it on the H100: bytes. Per image the box stage writes
-// 1000x7x7x256 outputs and reads scattered 4-corner rows of P2..P5; the reads
-// hit L2 heavily (neighbouring samples share corners). Design: one block per
-// ROI; the per-ROI level and the per-row / per-column sample indices and
-// weights are computed once into shared memory; threads then run over
-// (sample, channel) with the channel fastest, so each corner read and each
-// output write is a contiguous run of C values (coalesced, NHWC layout).
+// The forward (`roi_align_kernel`), one template for every variant, as the
+// Pallas kernel takes its epilogues: the float path (f32 or bf16 levels and
+// output) and the int8 epilogues of the serving path (`out_quant`,
+// `in_scale`): each value times an f32 [ph, pw, C] map and, for int8 output,
+// rint + clip to [-128, 127] (quantize_act). What bounds it on the H100:
+// bytes (each output written once, the touched corner rows read). Design:
+// block (ROI, group of samples); the ROI's level and per-row / per-column
+// tables computed once into shared memory; each thread owns one 16-byte
+// channel vector (8 bf16, 4 f32 or 16 int8; 1 channel where C is not a
+// multiple), so a warp's corner loads, output stores and map loads are
+// 16-byte accesses, and THREADS / (C / vector) samples are in flight; the
+// grid splits a ROI's samples over blocks (ph * pw from the launch), so a
+// 14x14 stage of 200 ROIs fills the card. No division in the sample loop.
 //
 // Exactness: level, grid and weights are computed in f32 with explicitly
 // rounded operations (and --fmad=false), so a sample coordinate cannot move
-// across an integer and change floor(). In f32 the corner sum follows the
-// plain version's order exactly (bit-equal). In bf16 the products and the sum
-// are taken in f32 and rounded once at the end (the plain version rounds to
-// bf16 after every op).
-//
-// The int8 epilogues (`roi_align_quant`) of the serving path: the same
-// block layout and tables, then each value times an f32 [ph, pw, C] map
-// and, for int8 output, rint + clip to [-128, 127] (quantize_act). Inputs
-// are f32 or bf16 levels (the float path's blend, bf16 rounded after every
-// product and sum as the plain version rounds, so the codes equal
-// quantize_act of the plain pooled tensor), or int8 codes blended in f32 with
-// f32 weights (the s_in/127 dequant is in the map). Bit-equal to the plain
-// version. What bounds it: bytes, as the float kernel, with 1-byte outputs
-// (and 1-byte reads for int8 levels).
+// across an integer and change floor(). Float path: in f32 the corner sum
+// follows the plain version's order exactly (bit-equal); in bf16 the
+// products and the sum are taken in f32 and rounded once at the end (the
+// plain version rounds to bf16 after every op). The int8 epilogues repeat
+// the plain version's blend: f32 levels and int8 codes in exact f32 ops with
+// f32 weights (the s_in/127 dequant is in the map), bf16 levels rounded to
+// bf16 after every product and sum as the plain version rounds, so the codes
+// equal quantize_act of the plain pooled tensor: bit-equal.
 //
 // The backward (`roi_align_backward_*`) is the gradient with respect to
 // P2..P5; the boxes get none, as `jax.lax.stop_gradient(boxes)` gives in
 // objectdetection_tpu/ops/roi_align.py. The JAX package has no Pallas kernel
 // for it: its gradient is XLA's autodiff of the four-gather sum. Each sample
-// scatters w * grad_out into the same four corners, with the same weights
-// (rounded to the feature type, as the forward does), by f32 atomicAdd into
-// f32 buffers that the caller zeroed; the caller casts them to the feature
-// type. What bounds it: bytes, reading grad_out once and writing the dense
-// gradient pyramid once. Same block layout as the forward (one block per
-// ROI, channel fastest), so a warp's atomics hit 32 consecutive addresses.
+// adds w * grad_out to its four corners, with the same weights (rounded to
+// the feature type, as the forward does). What bounds it: bytes, reading
+// grad_out once and writing the dense gradient pyramid once; the f32 sums
+// go through L2's atomic units. Design (bf16): `roi_align_mark_kernel`
+// marks the table rows the ROIs' corners reach, `roi_align_zero_kernel`
+// zeroes only those rows of an f32 scratch, `roi_align_backward_kernel`
+// adds into them, and `roi_align_finalize_kernel` writes the dense bf16
+// gradient (the rounded sums on marked rows, zeros elsewhere), where a
+// zeroed f32 pyramid and a cast pass would move 178 + 178 + 89 MB at
+// 1024^2. In f32 the scratch is the result, zeroed whole. The add kernel
+// runs one block per (ROI, 32 channels), lane = channel, each warp loading
+// the grad_out of PREFETCH samples at once; the corner weights and offsets
+// of every sample are computed once into shared memory. A dense ROI (zero,
+// tiny and small boxes: footprint of at most two pixels per sample) sums in
+// a shared f32 tile over its footprint and adds the tile once per touched
+// (pixel, 4 channels), so a pile of zero boxes costs a few adds per ROI;
+// any other ROI adds each contribution directly (coalesced f32 atomics).
 // The atomics sum in an order that changes from run to run: the result is
-// within a few ulps of the plain backward, not bit-equal.
+// within a few ulps of the plain backward, not bit-equal. A zero
+// contribution is skipped; a corner outside the table gets nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "xla_int.cuh"
@@ -79,6 +92,13 @@ namespace {
 
 constexpr int MAX_POOL = 32;
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+// the gradient: channels per block (one per lane), and the footprint pixels
+// a block may sum in shared memory (64 KB of f32)
+constexpr int SLICE = 32;
+constexpr int SHARED_PIXELS = 512;
+// returned where no thread layout of the forward fits the channels
+constexpr int NO_LAYOUT = -1;
 
 struct Levels {
   int h[4];
@@ -91,9 +111,14 @@ struct Pyramid {
   Levels dims;
 };
 
-struct GradPyramid {
+struct SumPyramid {
   float* grad[4];
   Levels dims;
+};
+
+template <typename T>
+struct OutPyramid {
+  T* grad[4];
 };
 
 struct RoiTables {
@@ -123,18 +148,9 @@ __device__ __forceinline__ P* table_row(P* const* levels, const Levels& d, int t
   return levels[0] + (size_t)i * channels;
 }
 
-__device__ __forceinline__ float load_f(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ float load_f(const int8_t* p, size_t i) { return (float)p[i]; }
 __device__ __forceinline__ float to_feat(float v, const float*) { return v; }
 __device__ __forceinline__ float to_feat(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ void store(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, size_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
 }
 
 // sample axis: positions lo*(S-1) + i*((hi-lo)*(S-1)/(P-1)), i in [0, P)
@@ -219,60 +235,6 @@ __device__ __forceinline__ void corner_rows(P* const* levels, const Levels& d,
   }
 }
 
-template <bool INSIDE, typename T>
-__device__ __forceinline__ float load_row(const T* row, int c) {
-  if (INSIDE) return load_f(row, c);
-  return row ? load_f(row, c) : __int_as_float(0x7fc00000);  // NaN
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-roi_align_kernel(Pyramid pyr, const float4* __restrict__ boxes, T* __restrict__ out,
-                 int rois_per_image, int channels, int ph, int pw,
-                 float canonical_scale, float ln2) {
-  __shared__ RoiTables s;
-  const int roi = blockIdx.x;
-  const int img = roi / rois_per_image;
-  const bool inside = roi_tables(pyr.dims, boxes[roi], img, ph, pw, canonical_scale, ln2, s);
-  const int li = s.level;
-  const int H = pyr.dims.h[li], W = pyr.dims.w[li];
-
-  const T* levels[4];
-  for (int l = 0; l < 4; ++l) levels[l] = static_cast<const T*>(pyr.feat[l]);
-  const T* feat = static_cast<const T*>(pyr.feat[li]) + (size_t)img * H * W * channels;
-  T* dst = out + (size_t)roi * ph * pw * channels;
-  const int total = ph * pw * channels;
-  auto loop = [&](auto direct) {
-    for (int idx = threadIdx.x; idx < total; idx += THREADS) {
-      const int c = idx % channels;
-      const int smp = idx / channels;
-      const int py = smp / pw, px = smp % pw;
-      const float wy = s.wy[py], wx = s.wx[px];
-      const float owy = __fsub_rn(1.0f, wy), owx = __fsub_rn(1.0f, wx);
-      const float w00 = to_feat(__fmul_rn(owy, owx), feat);
-      const float w01 = to_feat(__fmul_rn(owy, wx), feat);
-      const float w10 = to_feat(__fmul_rn(wy, owx), feat);
-      const float w11 = to_feat(__fmul_rn(wy, wx), feat);
-      const T* rows[4];
-      constexpr bool kInside = decltype(direct)::value;
-      corner_rows<kInside>(levels, pyr.dims, s, feat, W, py, px, channels, rows);
-      const float g00 = load_row<kInside>(rows[0], c);
-      const float g01 = load_row<kInside>(rows[1], c);
-      const float g10 = load_row<kInside>(rows[2], c);
-      const float g11 = load_row<kInside>(rows[3], c);
-      float acc = __fmul_rn(g00, w00);
-      acc = __fadd_rn(acc, __fmul_rn(g01, w01));
-      acc = __fadd_rn(acc, __fmul_rn(g10, w10));
-      acc = __fadd_rn(acc, __fmul_rn(g11, w11));
-      store(dst, idx, acc);
-    }
-  };
-  if (inside)
-    loop(std::true_type{});
-  else
-    loop(std::false_type{});
-}
-
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -298,24 +260,153 @@ __device__ __forceinline__ float blend<__nv_bfloat16>(float v00, float v01, floa
   const float p11 = bf16r(__fmul_rn(v11, bf16r(w11)));
   return bf16r(__fadd_rn(bf16r(__fadd_rn(bf16r(__fadd_rn(p00, p01)), p10)), p11));
 }
-__device__ __forceinline__ void store_q(int8_t* p, size_t i, float v) {
-  // NaN (a NaN box, or a corner outside the table) converts to 0, as XLA's
-  // convert does
-  const float q = isnan(v) ? 0.0f : fminf(fmaxf(rintf(v), -128.0f), 127.0f);
-  p[i] = (int8_t)(int)q;
-}
-__device__ __forceinline__ void store_q(__nv_bfloat16* p, size_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
+
+// The int8 epilogue's code: NaN (a NaN box, or a corner outside the table)
+// converts to 0, as XLA's convert does
+__device__ __forceinline__ int quantize(float v) {
+  return isnan(v) ? 0 : (int)fminf(fmaxf(rintf(v), -128.0f), 127.0f);
 }
 
-// Tin: float, bf16 or int8 levels; Tout: int8 (quantized with the map) or
-// bf16 (int8 levels dequantized with the map).
-template <typename Tin, typename Tout>
+// Channel vectors: N consecutive channels of one row, loaded and stored as
+// 16-byte (or narrower) accesses where N fills them, one by one where N = 1.
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k) {
+      const float4 q = reinterpret_cast<const float4*>(p)[k];
+      v[4 * k] = q.x;
+      v[4 * k + 1] = q.y;
+      v[4 * k + 2] = q.z;
+      v[4 * k + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = p[k];
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[N]) {
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int k = 0; k < N / 8; ++k) {
+      const uint4 q = reinterpret_cast<const uint4*>(p)[k];
+      const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // a bf16 is the top half of its f32
+        v[8 * k + 2 * j] = __uint_as_float(w[j] << 16);
+        v[8 * k + 2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+      }
+    }
+  } else if constexpr (N == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    v[0] = __uint_as_float(q.x << 16);
+    v[1] = __uint_as_float(q.x & 0xffff0000u);
+    v[2] = __uint_as_float(q.y << 16);
+    v[3] = __uint_as_float(q.y & 0xffff0000u);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = __bfloat162float(p[k]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_vec(const int8_t* p, float (&v)[N]) {
+  if constexpr (N % 16 == 0) {
+#pragma unroll
+    for (int k = 0; k < N / 16; ++k) {
+      const uint4 q = reinterpret_cast<const uint4*>(p)[k];
+      const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int j = 0; j < 16; ++j)  // byte j, sign-extended
+        v[16 * k + j] = (float)((int)(w[j / 4] << (24 - 8 * (j % 4))) >> 24);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = (float)p[k];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k)
+      reinterpret_cast<float4*>(p)[k] =
+          make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) p[k] = v[k];
+  }
+}
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&b);
+}
+template <int N>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[N]) {
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int k = 0; k < N / 8; ++k)
+      reinterpret_cast<uint4*>(p)[k] =
+          make_uint4(bf16_pair(v[8 * k], v[8 * k + 1]), bf16_pair(v[8 * k + 2], v[8 * k + 3]),
+                     bf16_pair(v[8 * k + 4], v[8 * k + 5]), bf16_pair(v[8 * k + 6], v[8 * k + 7]));
+  } else if constexpr (N == 4) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) p[k] = __float2bfloat16_rn(v[k]);
+  }
+}
+// int8 codes of v (already quantized to [-128, 127]), four to a word
+template <int N>
+__device__ __forceinline__ void store_vec(int8_t* p, const float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+    unsigned w[N / 4];
+#pragma unroll
+    for (int k = 0; k < N / 4; ++k) {
+      w[k] = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[k] |= ((unsigned)(int)v[4 * k + j] & 0xffu) << (8 * j);
+    }
+    if constexpr (N == 16) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else if constexpr (N == 8) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < N / 4; ++k) reinterpret_cast<unsigned*>(p)[k] = w[k];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) p[k] = (int8_t)(int)v[k];
+  }
+}
+
+// N channels of a corner row (INSIDE: in the ROI's own map), NaN for a
+// corner outside the table
+template <bool INSIDE, int N, typename T>
+__device__ __forceinline__ void load_corner(const T* row, int c, float (&v)[N]) {
+  if (INSIDE || row) {
+    load_vec<N>(row + c, v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = __int_as_float(0x7fc00000);
+  }
+}
+
+// The forward in every variant. Tin: f32, bf16 or int8 levels; MAP = false:
+// the float path (Tout = Tin): weights rounded to the feature type, the sum
+// in f32, rounded once at the store. MAP = true: the int8 epilogues, the
+// plain version's blend<Tin> times map [ph, pw, C], then int8 codes
+// (rint, clip) or bf16 (int8 levels dequantized). Each thread owns N
+// consecutive channels (16 bytes of Tin, or 1); THREADS / (C / N) samples are
+// in flight per block, and block (roi, split) walks samples
+// [split * chunk, (split + 1) * chunk).
+template <typename Tin, typename Tout, bool MAP, int N>
 __global__ void __launch_bounds__(THREADS)
-roi_align_quant_kernel(Pyramid pyr, const float4* __restrict__ boxes,
-                       const float* __restrict__ map, Tout* __restrict__ out,
-                       int rois_per_image, int channels, int ph, int pw,
-                       float canonical_scale, float ln2) {
+roi_align_kernel(Pyramid pyr, const float4* __restrict__ boxes, const float* __restrict__ map,
+                 Tout* __restrict__ out, int rois_per_image, int channels, int ph, int pw,
+                 int chunk, float canonical_scale, float ln2) {
   __shared__ RoiTables s;
   const int roi = blockIdx.x;
   const int img = roi / rois_per_image;
@@ -323,26 +414,65 @@ roi_align_quant_kernel(Pyramid pyr, const float4* __restrict__ boxes,
   const int li = s.level;
   const int H = pyr.dims.h[li], W = pyr.dims.w[li];
 
+  const int vecs = channels / N;     // threads per sample
+  const int per = THREADS / vecs;    // samples in flight
+  const int slot = threadIdx.x / vecs;
+  if (slot >= per) return;
+  const int c = (threadIdx.x - slot * vecs) * N;
+  const int n = ph * pw;
+  const int end = min(n, ((int)blockIdx.y + 1) * chunk);
+  int smp = (int)blockIdx.y * chunk + slot;
+  int py = smp / pw, px = smp - py * pw;
+  const int dpy = per / pw, dpx = per - dpy * pw;
+
   const Tin* levels[4];
   for (int l = 0; l < 4; ++l) levels[l] = static_cast<const Tin*>(pyr.feat[l]);
   const Tin* feat = static_cast<const Tin*>(pyr.feat[li]) + (size_t)img * H * W * channels;
-  Tout* dst = out + (size_t)roi * ph * pw * channels;
-  const int total = ph * pw * channels;
+  Tout* dst = out + (size_t)roi * n * channels + c;
   auto loop = [&](auto direct) {
-    for (int idx = threadIdx.x; idx < total; idx += THREADS) {
-      const int c = idx % channels;
-      const int smp = idx / channels;
-      const int py = smp / pw, px = smp % pw;
+    constexpr bool kInside = decltype(direct)::value;
+    for (; smp < end; smp += per) {
       const float wy = s.wy[py], wx = s.wx[px];
       const float owy = __fsub_rn(1.0f, wy), owx = __fsub_rn(1.0f, wx);
       const Tin* rows[4];
-      constexpr bool kInside = decltype(direct)::value;
       corner_rows<kInside>(levels, pyr.dims, s, feat, W, py, px, channels, rows);
-      const float v = blend<Tin>(load_row<kInside>(rows[0], c), load_row<kInside>(rows[1], c),
-                                 load_row<kInside>(rows[2], c), load_row<kInside>(rows[3], c),
-                                 __fmul_rn(owy, owx), __fmul_rn(owy, wx), __fmul_rn(wy, owx),
-                                 __fmul_rn(wy, wx));
-      store_q(dst, idx, __fmul_rn(v, map[idx]));
+      float g00[N], g01[N], g10[N], g11[N], o[N];
+      load_corner<kInside>(rows[0], c, g00);
+      load_corner<kInside>(rows[1], c, g01);
+      load_corner<kInside>(rows[2], c, g10);
+      load_corner<kInside>(rows[3], c, g11);
+      const size_t at = (size_t)smp * channels;
+      if constexpr (MAP) {
+        const float w00 = __fmul_rn(owy, owx), w01 = __fmul_rn(owy, wx);
+        const float w10 = __fmul_rn(wy, owx), w11 = __fmul_rn(wy, wx);
+        float m[N];
+        load_vec<N>(map + at + c, m);
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const float v = __fmul_rn(
+              blend<Tin>(g00[k], g01[k], g10[k], g11[k], w00, w01, w10, w11), m[k]);
+          o[k] = std::is_same<Tout, int8_t>::value ? (float)quantize(v) : v;
+        }
+      } else {
+        const float w00 = to_feat(__fmul_rn(owy, owx), feat);
+        const float w01 = to_feat(__fmul_rn(owy, wx), feat);
+        const float w10 = to_feat(__fmul_rn(wy, owx), feat);
+        const float w11 = to_feat(__fmul_rn(wy, wx), feat);
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          float acc = __fmul_rn(g00[k], w00);
+          acc = __fadd_rn(acc, __fmul_rn(g01[k], w01));
+          acc = __fadd_rn(acc, __fmul_rn(g10[k], w10));
+          o[k] = __fadd_rn(acc, __fmul_rn(g11[k], w11));
+        }
+      }
+      store_vec<N>(dst + at, o);
+      px += dpx;
+      py += dpy;
+      if (px >= pw) {
+        px -= pw;
+        ++py;
+      }
     }
   };
   if (inside)
@@ -351,55 +481,228 @@ roi_align_quant_kernel(Pyramid pyr, const float4* __restrict__ boxes,
     loop(std::false_type{});
 }
 
-template <bool INSIDE>
 __device__ __forceinline__ void scatter(float* row, int c, float v) {
   // adding zero changes no bit of the sum; a corner outside the table
   // (nullptr) gets no gradient, as XLA's scatter drops it
-  if ((INSIDE || row) && v != 0.0f) atomicAdd(row + c, v);
+  if (row && v != 0.0f) atomicAdd(row + c, v);
 }
 
-// grad_out [batch, rois, ph, pw, C] in the feature type T; grads: f32 per
-// level, zeroed by the caller.
-template <typename T>
+// Marks every table row a bilinear corner of the ROI's samples lands on
+// (the rows `roi_align._corners` gives, zero weights included): the rows
+// the gradient may reach. One block per ROI; the caller zeroed `marks`.
 __global__ void __launch_bounds__(THREADS)
-roi_align_backward_kernel(GradPyramid gp, const float4* __restrict__ boxes,
-                          const T* __restrict__ grad_out, int rois_per_image, int channels,
-                          int ph, int pw, float canonical_scale, float ln2) {
+roi_align_mark_kernel(Levels dims, const float4* __restrict__ boxes, uint8_t* __restrict__ marks,
+                      int rois_per_image, int ph, int pw, float canonical_scale, float ln2) {
   __shared__ RoiTables s;
   const int roi = blockIdx.x;
-  const int img = roi / rois_per_image;
-  const bool inside = roi_tables(gp.dims, boxes[roi], img, ph, pw, canonical_scale, ln2, s);
-  const int li = s.level;
-  const int H = gp.dims.h[li], W = gp.dims.w[li];
-
-  float* grad = gp.grad[li] + (size_t)img * H * W * channels;
-  const T* src = grad_out + (size_t)roi * ph * pw * channels;
-  const int total = ph * pw * channels;
-  auto loop = [&](auto direct) {
-    for (int idx = threadIdx.x; idx < total; idx += THREADS) {
-      const int c = idx % channels;
-      const int smp = idx / channels;
-      const int py = smp / pw, px = smp % pw;
-      const float wy = s.wy[py], wx = s.wx[px];
-      const float owy = __fsub_rn(1.0f, wy), owx = __fsub_rn(1.0f, wx);
-      const float w00 = to_feat(__fmul_rn(owy, owx), src);
-      const float w01 = to_feat(__fmul_rn(owy, wx), src);
-      const float w10 = to_feat(__fmul_rn(wy, owx), src);
-      const float w11 = to_feat(__fmul_rn(wy, wx), src);
-      float* rows[4];
-      constexpr bool kInside = decltype(direct)::value;
-      corner_rows<kInside>(gp.grad, gp.dims, s, grad, W, py, px, channels, rows);
-      const float g = load_f(src, idx);
-      scatter<kInside>(rows[0], c, __fmul_rn(g, w00));
-      scatter<kInside>(rows[1], c, __fmul_rn(g, w01));
-      scatter<kInside>(rows[2], c, __fmul_rn(g, w10));
-      scatter<kInside>(rows[3], c, __fmul_rn(g, w11));
+  roi_tables(dims, boxes[roi], roi / rois_per_image, ph, pw, canonical_scale, ln2, s);
+  for (int smp = threadIdx.x; smp < ph * pw; smp += THREADS) {
+    const int py = smp / pw, px = smp - py * pw;
+    const int t[4] = {wrap_add(s.ty0[py], s.x0[px]), wrap_add(s.ty0[py], s.x1[px]),
+                      wrap_add(s.ty1[py], s.x0[px]), wrap_add(s.ty1[py], s.x1[px])};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      long long i = t[k];
+      if (i < 0) i += dims.base[4];
+      if (i >= 0 && i < dims.base[4]) marks[i] = 1;
     }
-  };
-  if (inside)
-    loop(std::true_type{});
-  else
-    loop(std::false_type{});
+  }
+}
+
+// Zeroes the f32 rows of `sums` that `marks` marks (every row where marks is
+// null). One warp per row, lanes over the channels.
+__global__ void __launch_bounds__(THREADS)
+roi_align_zero_kernel(SumPyramid sums, const uint8_t* __restrict__ marks, int channels) {
+  const int lane = threadIdx.x & 31;
+  const long long step = (long long)gridDim.x * WARPS;
+  for (long long r = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5); r < sums.dims.base[4];
+       r += step) {
+    if (marks && !marks[r]) continue;
+    float* row = table_row(sums.grad, sums.dims, (int)r, channels);
+    if ((channels & 3) == 0) {
+      for (int v = lane; v < channels / 4; v += 32)
+        reinterpret_cast<float4*>(row)[v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    } else {
+      for (int c = lane; c < channels; c += 32) row[c] = 0.0f;
+    }
+  }
+}
+
+// The dense bf16 gradient: each marked row rounded from its f32 sum, every
+// other row zero. One warp per row.
+__global__ void __launch_bounds__(THREADS)
+roi_align_finalize_kernel(SumPyramid sums, OutPyramid<__nv_bfloat16> out,
+                          const uint8_t* __restrict__ marks, int channels) {
+  const int lane = threadIdx.x & 31;
+  const long long step = (long long)gridDim.x * WARPS;
+  for (long long r = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5); r < sums.dims.base[4];
+       r += step) {
+    const bool touched = marks[r];
+    const float* src = table_row(sums.grad, sums.dims, (int)r, channels);
+    __nv_bfloat16* dst = table_row(out.grad, sums.dims, (int)r, channels);
+    if ((channels & 3) == 0) {
+      for (int v = lane; v < channels / 4; v += 32) {
+        float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (touched) load_vec<4>(src + 4 * v, x);
+        store_vec<4>(dst + 4 * v, x);
+      }
+    } else {
+      for (int c = lane; c < channels; c += 32)
+        dst[c] = __float2bfloat16_rn(touched ? src[c] : 0.0f);
+    }
+  }
+}
+
+// The rectangle of an in-map ROI's corners on its level (rows y..y+h-1,
+// columns x..x+w-1), in shared memory.
+struct Footprint {
+  int y, x, h, w;
+};
+
+__device__ __forceinline__ void footprint(const RoiTables& s, int ph, int pw, Footprint& f) {
+  const int t = threadIdx.x, lane = t & 31;
+  if (t < 64) {  // warp 0: rows, warp 1: columns
+    const bool rows = t < 32;
+    int lo = INT_MAX, hi = INT_MIN;
+    if (lane < (rows ? ph : pw)) {
+      const int a = rows ? s.y0[lane] : s.x0[lane], b = rows ? s.y1[lane] : s.x1[lane];
+      lo = min(a, b);
+      hi = max(a, b);
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (lane == 0) {
+      if (rows) {
+        f.y = lo;
+        f.h = hi - lo + 1;
+      } else {
+        f.x = lo;
+        f.w = hi - lo + 1;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+constexpr int PREFETCH = 4;  // samples whose grad_out a warp loads at once
+
+// grad_out [batch, rois, ph, pw, C] in the feature type T; sums: the f32
+// sums per level, zeroed where the ROIs' corners land. One block per (ROI,
+// slice of SLICE channels): lane = channel; warp w takes samples w, w +
+// WARPS, ..., PREFETCH of them at a time. Per sample the four corner weights
+// (rounded to T) and corner offsets sit in shared memory. A dense in-map
+// ROI (footprint of at most SHARED_PIXELS pixels and at most two per
+// sample: zero, tiny and small boxes) sums in a shared f32 tile over its
+// footprint and adds it to `sums` once per touched (pixel, 4 channels); any
+// other ROI adds each contribution to `sums` directly.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+roi_align_backward_kernel(SumPyramid sums, const float4* __restrict__ boxes,
+                          const T* __restrict__ grad_out, int rois_per_image, int channels,
+                          int ph, int pw, float canonical_scale, float ln2) {
+  extern __shared__ float4 dyn[];  // [n] weights, [n] corner offsets, the [pixels, SLICE] tile
+  __shared__ RoiTables s;
+  __shared__ Footprint f;
+  const int roi = blockIdx.x;
+  const int img = roi / rois_per_image;
+  const bool inside = roi_tables(sums.dims, boxes[roi], img, ph, pw, canonical_scale, ln2, s);
+  const int li = s.level;
+  const int H = sums.dims.h[li], W = sums.dims.w[li];
+  const int n = ph * pw;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.y * SLICE;
+  const int c = c0 + lane;
+  if (inside) footprint(s, ph, pw, f);  // block-uniform: holds a barrier
+  const int pixels = inside ? f.h * f.w : 0;
+  const bool tiled = inside && pixels <= SHARED_PIXELS && pixels <= 2 * n;
+
+  float4* wts = dyn;
+  int4* offs = reinterpret_cast<int4*>(dyn + n);
+  float* tile = reinterpret_cast<float*>(dyn + 2 * n);
+  for (int smp = threadIdx.x; smp < n; smp += THREADS) {
+    const int py = smp / pw, px = smp - py * pw;
+    const float wy = s.wy[py], wx = s.wx[px];
+    const float owy = __fsub_rn(1.0f, wy), owx = __fsub_rn(1.0f, wx);
+    wts[smp] = make_float4(to_feat(__fmul_rn(owy, owx), grad_out),
+                           to_feat(__fmul_rn(owy, wx), grad_out),
+                           to_feat(__fmul_rn(wy, owx), grad_out),
+                           to_feat(__fmul_rn(wy, wx), grad_out));
+    if (tiled) {  // pixel indices of the corners in the footprint
+      const int r0 = (s.y0[py] - f.y) * f.w, r1 = (s.y1[py] - f.y) * f.w;
+      const int q0 = s.x0[px] - f.x, q1 = s.x1[px] - f.x;
+      offs[smp] = make_int4(r0 + q0, r0 + q1, r1 + q0, r1 + q1);
+    } else {
+      offs[smp] = make_int4(py, px, 0, 0);
+    }
+  }
+  if (tiled) {
+    for (int i = threadIdx.x; i < pixels * SLICE / 4; i += THREADS)
+      reinterpret_cast<float4*>(tile)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  __syncthreads();
+
+  float* grad = sums.grad[li] + (size_t)img * H * W * channels;
+  const T* src = grad_out + (size_t)roi * n * channels + c;
+  if (c < channels) {
+    for (int s0 = warp; s0 < n; s0 += WARPS * PREFETCH) {
+      float g[PREFETCH];
+#pragma unroll
+      for (int u = 0; u < PREFETCH; ++u) {
+        const int smp = s0 + u * WARPS;
+        float v[1] = {0.0f};
+        if (smp < n) load_vec<1>(src + (size_t)smp * channels, v);
+        g[u] = v[0];
+      }
+#pragma unroll
+      for (int u = 0; u < PREFETCH; ++u) {
+        const int smp = s0 + u * WARPS;
+        if (smp >= n) continue;
+        const float4 w = wts[smp];
+        const int4 o = offs[smp];
+        const float v00 = __fmul_rn(g[u], w.x), v01 = __fmul_rn(g[u], w.y);
+        const float v10 = __fmul_rn(g[u], w.z), v11 = __fmul_rn(g[u], w.w);
+        if (tiled) {
+          if (v00 != 0.0f) atomicAdd(&tile[o.x * SLICE + lane], v00);
+          if (v01 != 0.0f) atomicAdd(&tile[o.y * SLICE + lane], v01);
+          if (v10 != 0.0f) atomicAdd(&tile[o.z * SLICE + lane], v10);
+          if (v11 != 0.0f) atomicAdd(&tile[o.w * SLICE + lane], v11);
+        } else {
+          float* rows[4];
+          if (inside)
+            corner_rows<true>(sums.grad, sums.dims, s, grad, W, o.x, o.y, channels, rows);
+          else
+            corner_rows<false>(sums.grad, sums.dims, s, grad, W, o.x, o.y, channels, rows);
+          scatter(rows[0], c, v00);
+          scatter(rows[1], c, v01);
+          scatter(rows[2], c, v10);
+          scatter(rows[3], c, v11);
+        }
+      }
+    }
+  }
+  if (!tiled) return;  // block-uniform
+  __syncthreads();
+  // flush: one add per (pixel, 4 channels) holding a nonzero (or NaN) sum
+  float* base = grad + ((size_t)f.y * W + f.x) * channels + c0;
+  const int width = min(SLICE, channels - c0);
+  if ((channels & 3) == 0) {
+    for (int i = threadIdx.x; i < pixels * (SLICE / 4); i += THREADS) {
+      const int p = i / (SLICE / 4), q = 4 * (i % (SLICE / 4));
+      if (q >= width) continue;
+      const float4 v = *reinterpret_cast<const float4*>(&tile[p * SLICE + q]);
+      if (v.x == 0.0f && v.y == 0.0f && v.z == 0.0f && v.w == 0.0f) continue;
+      const int yy = p / f.w, xx = p - yy * f.w;
+      atomicAdd(reinterpret_cast<float4*>(base + ((size_t)yy * W + xx) * channels + q), v);
+    }
+  } else {
+    for (int i = threadIdx.x; i < pixels * SLICE; i += THREADS) {
+      const int p = i / SLICE, q = i % SLICE;
+      const float v = tile[i];
+      if (q >= width || v == 0.0f) continue;
+      const int yy = p / f.w, xx = p - yy * f.w;
+      atomicAdd(base + ((size_t)yy * W + xx) * channels + q, v);
+    }
+  }
 }
 
 Levels make_levels(const int* hw, int batch) {
@@ -413,46 +716,86 @@ Levels make_levels(const int* hw, int batch) {
   return d;
 }
 
-template <typename T>
-int launch(const void* const* feats, const int* hw, const void* boxes, void* out, int batch,
-           int rois, int channels, int ph, int pw, float canonical_scale, float ln2,
-           void* stream) {
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// One launch of the forward: N = 16 bytes of Tin where the channels fill
+// whole vectors and every pointer is 16-byte aligned, else 1.
+template <typename Tin, typename Tout, bool MAP>
+int launch(const void* const* feats, const int* hw, const void* boxes, const float* map,
+           void* out, int batch, int rois, int channels, int ph, int pw, float canonical_scale,
+           float ln2, void* stream) {
   if (batch <= 0 || rois <= 0) return 0;
-  if (ph < 1 || pw < 1 || ph > MAX_POOL || pw > MAX_POOL) return (int)cudaErrorInvalidValue;
+  if (ph < 1 || pw < 1 || ph > MAX_POOL || pw > MAX_POOL || channels < 1)
+    return (int)cudaErrorInvalidValue;
+  constexpr int V = 16 / sizeof(Tin);
   Pyramid pyr;
-  for (int l = 0; l < 4; ++l) pyr.feat[l] = feats[l];
+  bool vec = channels % V == 0 && channels / V <= THREADS && aligned16(out) &&
+             (!MAP || aligned16(map));
+  for (int l = 0; l < 4; ++l) {
+    pyr.feat[l] = feats[l];
+    vec = vec && aligned16(feats[l]);
+  }
+  if (!vec && channels > THREADS) return NO_LAYOUT;
   pyr.dims = make_levels(hw, batch);
-  roi_align_kernel<T><<<batch * rois, THREADS, 0, (cudaStream_t)stream>>>(
-      pyr, (const float4*)boxes, (T*)out, rois, channels, ph, pw, canonical_scale, ln2);
+  const int n = ph * pw;
+  const int per = THREADS / (vec ? channels / V : channels);  // samples in flight
+  const int splits = (n + 8 * per - 1) / (8 * per);            // about 8 passes per block
+  const int chunk = (n + splits - 1) / splits;
+  const dim3 grid(batch * rois, splits);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec)
+    roi_align_kernel<Tin, Tout, MAP, V><<<grid, THREADS, 0, st>>>(
+        pyr, (const float4*)boxes, map, (Tout*)out, rois, channels, ph, pw, chunk,
+        canonical_scale, ln2);
+  else
+    roi_align_kernel<Tin, Tout, MAP, 1><<<grid, THREADS, 0, st>>>(
+        pyr, (const float4*)boxes, map, (Tout*)out, rois, channels, ph, pw, chunk,
+        canonical_scale, ln2);
   return (int)cudaGetLastError();
 }
 
-template <typename Tin, typename Tout>
-int launch_quant(const void* const* feats, const int* hw, const void* boxes, const float* map,
-                 void* out, int batch, int rois, int channels, int ph, int pw,
-                 float canonical_scale, float ln2, void* stream) {
-  if (batch <= 0 || rois <= 0) return 0;
-  if (ph < 1 || pw < 1 || ph > MAX_POOL || pw > MAX_POOL) return (int)cudaErrorInvalidValue;
-  Pyramid pyr;
-  for (int l = 0; l < 4; ++l) pyr.feat[l] = feats[l];
-  pyr.dims = make_levels(hw, batch);
-  roi_align_quant_kernel<Tin, Tout><<<batch * rois, THREADS, 0, (cudaStream_t)stream>>>(
-      pyr, (const float4*)boxes, map, (Tout*)out, rois, channels, ph, pw, canonical_scale, ln2);
-  return (int)cudaGetLastError();
+int row_blocks(const Levels& d) {
+  return (int)std::min<long long>((d.base[4] + WARPS - 1) / WARPS, 8192);
 }
 
+// grads: the result per level (f32: they are the sums; bf16: the dense
+// rounded gradient, with the sums in `scratch`, [table rows, C] f32, and the
+// row marks in `marks`, one byte per table row).
 template <typename T>
-int launch_backward(const void* grad_out, const int* hw, const void* boxes,
-                    float* const* grads, int batch, int rois, int channels, int ph, int pw,
-                    float canonical_scale, float ln2, void* stream) {
+int launch_backward(const void* grad_out, const int* hw, const void* boxes, void* const* grads,
+                    float* scratch, uint8_t* marks, int batch, int rois, int channels, int ph,
+                    int pw, float canonical_scale, float ln2, void* stream) {
   if (batch <= 0 || rois <= 0) return 0;
-  if (ph < 1 || pw < 1 || ph > MAX_POOL || pw > MAX_POOL) return (int)cudaErrorInvalidValue;
-  GradPyramid gp;
-  for (int l = 0; l < 4; ++l) gp.grad[l] = grads[l];
-  gp.dims = make_levels(hw, batch);
-  roi_align_backward_kernel<T><<<batch * rois, THREADS, 0, (cudaStream_t)stream>>>(
-      gp, (const float4*)boxes, (const T*)grad_out, rois, channels, ph, pw, canonical_scale,
-      ln2);
+  if (ph < 1 || pw < 1 || ph > MAX_POOL || pw > MAX_POOL || channels < 1)
+    return (int)cudaErrorInvalidValue;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  cudaStream_t st = (cudaStream_t)stream;
+  SumPyramid sums;
+  sums.dims = make_levels(hw, batch);
+  for (int l = 0; l < 4; ++l)
+    sums.grad[l] = kF32 ? (float*)grads[l] : scratch + sums.dims.base[l] * channels;
+  const int blocks = batch * rois;
+  if (!kF32) {
+    cudaError_t e = cudaMemsetAsync(marks, 0, (size_t)sums.dims.base[4], st);
+    if (e != cudaSuccess) return (int)e;
+    roi_align_mark_kernel<<<blocks, THREADS, 0, st>>>(sums.dims, (const float4*)boxes, marks,
+                                                      rois, ph, pw, canonical_scale, ln2);
+  }
+  roi_align_zero_kernel<<<row_blocks(sums.dims), THREADS, 0, st>>>(
+      sums, kF32 ? nullptr : marks, channels);
+  const size_t smem = (size_t)ph * pw * 2 * sizeof(float4) + (size_t)SHARED_PIXELS * SLICE * 4;
+  cudaError_t e = cudaFuncSetAttribute(roi_align_backward_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  roi_align_backward_kernel<T><<<dim3(blocks, (channels + SLICE - 1) / SLICE), THREADS, smem,
+                                 st>>>(sums, (const float4*)boxes, (const T*)grad_out, rois,
+                                       channels, ph, pw, canonical_scale, ln2);
+  if (!kF32) {
+    OutPyramid<__nv_bfloat16> out;
+    for (int l = 0; l < 4; ++l) out.grad[l] = (__nv_bfloat16*)grads[l];
+    roi_align_finalize_kernel<<<row_blocks(sums.dims), THREADS, 0, st>>>(sums, out, marks,
+                                                                        channels);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -466,8 +809,8 @@ extern "C" int roi_align_f32(const void* p2, const void* p3, const void* p4, con
                              int channels, int ph, int pw, float canonical_scale, float ln2,
                              void* stream) {
   const void* feats[4] = {p2, p3, p4, p5};
-  return launch<float>(feats, hw, boxes, out, batch, rois, channels, ph, pw, canonical_scale,
-                       ln2, stream);
+  return launch<float, float, false>(feats, hw, boxes, nullptr, out, batch, rois, channels, ph,
+                                     pw, canonical_scale, ln2, stream);
 }
 
 extern "C" int roi_align_bf16(const void* p2, const void* p3, const void* p4, const void* p5,
@@ -475,8 +818,9 @@ extern "C" int roi_align_bf16(const void* p2, const void* p3, const void* p4, co
                               int channels, int ph, int pw, float canonical_scale, float ln2,
                               void* stream) {
   const void* feats[4] = {p2, p3, p4, p5};
-  return launch<__nv_bfloat16>(feats, hw, boxes, out, batch, rois, channels, ph, pw,
-                               canonical_scale, ln2, stream);
+  return launch<__nv_bfloat16, __nv_bfloat16, false>(feats, hw, boxes, nullptr, out, batch, rois,
+                                                     channels, ph, pw, canonical_scale, ln2,
+                                                     stream);
 }
 
 // The int8 epilogues. in_kind: 0 f32, 1 bf16, 2 int8 levels; out_kind: 2 int8
@@ -486,40 +830,36 @@ extern "C" int roi_align_quant(const void* p2, const void* p3, const void* p4, c
                                int in_kind, int out_kind, int batch, int rois, int channels,
                                int ph, int pw, float canonical_scale, float ln2, void* stream) {
   const void* feats[4] = {p2, p3, p4, p5};
-  if (out_kind == 2) {
-    if (in_kind == 0)
-      return launch_quant<float, int8_t>(feats, hw, boxes, map, out, batch, rois, channels, ph,
-                                         pw, canonical_scale, ln2, stream);
-    if (in_kind == 1)
-      return launch_quant<__nv_bfloat16, int8_t>(feats, hw, boxes, map, out, batch, rois,
-                                                 channels, ph, pw, canonical_scale, ln2, stream);
-    if (in_kind == 2)
-      return launch_quant<int8_t, int8_t>(feats, hw, boxes, map, out, batch, rois, channels, ph,
-                                          pw, canonical_scale, ln2, stream);
-  } else if (out_kind == 1 && in_kind == 2) {
-    return launch_quant<int8_t, __nv_bfloat16>(feats, hw, boxes, map, out, batch, rois,
-                                               channels, ph, pw, canonical_scale, ln2, stream);
-  }
+#define ROI_QUANT(TIN, TOUT)                                                                  \
+  launch<TIN, TOUT, true>(feats, hw, boxes, map, out, batch, rois, channels, ph, pw,         \
+                          canonical_scale, ln2, stream)
+  if (out_kind == 2 && in_kind == 0) return ROI_QUANT(float, int8_t);
+  if (out_kind == 2 && in_kind == 1) return ROI_QUANT(__nv_bfloat16, int8_t);
+  if (out_kind == 2 && in_kind == 2) return ROI_QUANT(int8_t, int8_t);
+  if (out_kind == 1 && in_kind == 2) return ROI_QUANT(int8_t, __nv_bfloat16);
+#undef ROI_QUANT
   return (int)cudaErrorInvalidValue;
 }
 
 // grad_out: [batch, rois, ph, pw, channels] in the feature type; hw and boxes
-// as for the forward; g2..g5: f32 gradient buffers [batch, h_l, w_l, channels],
-// zeroed by the caller, which accumulate the result.
+// as for the forward; g2..g5: the gradient per level [batch, h_l, w_l,
+// channels] in the feature type, written whole. bf16 also takes an f32
+// scratch of [sum of batch * h_l * w_l, channels] and one byte per row of it
+// (marks); f32 takes neither (null).
 extern "C" int roi_align_backward_f32(const void* grad_out, const int* hw, const void* boxes,
-                                      float* g2, float* g3, float* g4, float* g5, int batch,
-                                      int rois, int channels, int ph, int pw,
-                                      float canonical_scale, float ln2, void* stream) {
-  float* grads[4] = {g2, g3, g4, g5};
-  return launch_backward<float>(grad_out, hw, boxes, grads, batch, rois, channels, ph, pw,
-                                canonical_scale, ln2, stream);
+                                      void* g2, void* g3, void* g4, void* g5, float* scratch,
+                                      uint8_t* marks, int batch, int rois, int channels, int ph,
+                                      int pw, float canonical_scale, float ln2, void* stream) {
+  void* grads[4] = {g2, g3, g4, g5};
+  return launch_backward<float>(grad_out, hw, boxes, grads, scratch, marks, batch, rois,
+                                channels, ph, pw, canonical_scale, ln2, stream);
 }
 
 extern "C" int roi_align_backward_bf16(const void* grad_out, const int* hw, const void* boxes,
-                                       float* g2, float* g3, float* g4, float* g5, int batch,
-                                       int rois, int channels, int ph, int pw,
-                                       float canonical_scale, float ln2, void* stream) {
-  float* grads[4] = {g2, g3, g4, g5};
-  return launch_backward<__nv_bfloat16>(grad_out, hw, boxes, grads, batch, rois, channels, ph,
-                                        pw, canonical_scale, ln2, stream);
+                                       void* g2, void* g3, void* g4, void* g5, float* scratch,
+                                       uint8_t* marks, int batch, int rois, int channels, int ph,
+                                       int pw, float canonical_scale, float ln2, void* stream) {
+  void* grads[4] = {g2, g3, g4, g5};
+  return launch_backward<__nv_bfloat16>(grad_out, hw, boxes, grads, scratch, marks, batch, rois,
+                                        channels, ph, pw, canonical_scale, ln2, stream);
 }

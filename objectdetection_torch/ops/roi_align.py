@@ -64,6 +64,10 @@ int8_launches = 0  # launches of the int8-epilogue variants
 
 LN2 = float(np.log(np.float32(2.0)).astype(np.float32))
 _MAX_POOL = 32
+_NO_LAYOUT = -1  # csrc/roi_align.cu NO_LAYOUT
+# footprint pixels a block of the gradient kernel may sum in shared memory
+# (csrc/roi_align.cu SHARED_PIXELS)
+SHARED_PIXELS = 512
 
 
 def _canonical_scale(image_area: float, canonical_size: float = 224.0) -> float:
@@ -220,6 +224,21 @@ def _corners(level_hw, boxes, image_shape, crop_size):
     ]
 
 
+def touched_row_marks(feature_shapes, boxes, image_shape, crop_size) -> torch.Tensor:
+    """Plain version of the gradient kernels' row marks: a bool per row of
+    the levels' flat table, set where some sample's bilinear corner lands
+    (zero weights included; nothing for corners outside the table). The bf16
+    gradient zeroes its f32 sums on these rows only and writes every other
+    row as zero, so they must hold every row the gradient reaches."""
+    shapes = [tuple(sh) for sh in feature_shapes]
+    corners = _corners([sh[1:3] for sh in shapes], boxes, image_shape, crop_size)
+    marks = torch.zeros(sum(sh[0] * sh[1] * sh[2] for sh in shapes), dtype=torch.bool,
+                        device=boxes.device)
+    for rows, _ in corners:
+        marks[rows[rows >= 0]] = True
+    return marks
+
+
 def touched_rows(features: Sequence[torch.Tensor], boxes, image_shape, crop_size) -> int:
     """Distinct feature rows (C values each) that the samples of `boxes` need:
     corners with a nonzero bilinear weight."""
@@ -312,6 +331,16 @@ def _check_pyramid(shapes, dtypes, devices, boxes, crop_size):
         raise ValueError("roi_align kernel: the pyramid's rows overflow JAX's int32 table index")
 
 
+def _check_forward(status: int, what: str, channels: int, dtype) -> None:
+    """Raise on a forward launch's status. The kernel gives each of its 256
+    threads a 16-byte channel vector where the channels fill whole vectors
+    of 16-byte-aligned tensors, else one channel: it returns NO_LAYOUT for
+    more channels than either layout takes."""
+    if status == _NO_LAYOUT:
+        raise ValueError(f"{what} kernel: {channels} channels of {dtype} fill no thread layout")
+    cuda_build.check(status, what)
+
+
 def _level_dims(shapes):
     return (ctypes.c_int * 8)(*[d for shape in shapes for d in shape[1:3]])
 
@@ -344,7 +373,7 @@ def _forward_kernel(features, boxes, image_shape, crop_size) -> torch.Tensor:
     with torch.cuda.device(boxes.device):
         status = fn(*[f.data_ptr() for f in feats], _level_dims([f.shape for f in feats]),
                     boxes.data_ptr(), out.data_ptr(), b, r, c, ph, pw, scale, LN2, stream)
-    cuda_build.check(status, "roi_align")
+    _check_forward(status, "roi_align", c, dtype)
     launches += 1
     return out
 
@@ -385,7 +414,7 @@ def _quant_kernel(features, boxes, image_shape, crop_size, out_quant, in_scale) 
         status = fn(*[f.data_ptr() for f in feats], _level_dims([f.shape for f in feats]),
                     boxes.data_ptr(), m.data_ptr(), out.data_ptr(), _KINDS[dtype],
                     _KINDS[out_dtype], b, r, c, ph, pw, scale, LN2, stream)
-    cuda_build.check(status, "roi_align_quant")
+    _check_forward(status, "roi_align_quant", c, dtype)
     int8_launches += 1
     return out
 
@@ -397,27 +426,40 @@ def roi_align_backward(
     image_shape: Tuple[int, int],
 ) -> List[torch.Tensor]:
     """Gradient of :func:`batched_multilevel_roi_align` with respect to
-    P2..P5, by the CUDA kernel: grad_out [B, R, ph, pw, C] (f32 or bf16) →
-    four [B, H_l, W_l, C] tensors in grad_out's dtype. The kernel accumulates
-    in f32 (atomics); a bf16 result is rounded once from that sum."""
+    P2..P5, by the CUDA kernels: grad_out [B, R, ph, pw, C] (f32 or bf16) →
+    four [B, H_l, W_l, C] tensors in grad_out's dtype. The kernels sum in f32;
+    a bf16 result is rounded once from that sum."""
+    return _backward_kernel(grad_out, boxes, feature_shapes, image_shape)[0]
+
+
+def _backward_kernel(grad_out, boxes, feature_shapes, image_shape):
+    """:func:`roi_align_backward`, and for bf16 the kernels' row marks (one
+    byte per row of the levels' flat table; None in f32)."""
     if grad_out.device.type != "cuda":
         raise ValueError(f"roi_align_backward kernel: unsupported device {grad_out.device}")
     dtype = grad_out.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"roi_align_backward kernel: unsupported dtype {dtype}")
     b, r, ph, pw, c = grad_out.shape
     shapes = [tuple(s) for s in feature_shapes]
     dev = grad_out.device
     _check_pyramid(shapes, [dtype] * len(shapes), [dev] * len(shapes), boxes, (ph, pw))
     if any(s[-1] != c for s in shapes):
         raise ValueError(f"roi_align_backward: grad_out channels {c} != levels' {shapes}")
-    grads = [torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes]
     if b == 0 or r == 0:
-        return [g.to(dtype) for g in grads]
+        return [torch.zeros(s, dtype=dtype, device=dev) for s in shapes], None
+    grads = [torch.empty(s, dtype=dtype, device=dev) for s in shapes]  # written whole
+    scratch = marks = None
+    if dtype == torch.bfloat16:  # the f32 sums of the rows the ROIs reach, and their marks
+        rows = sum(s[0] * s[1] * s[2] for s in shapes)
+        scratch = torch.empty((rows, c), dtype=torch.float32, device=dev)
+        marks = torch.empty(rows, dtype=torch.uint8, device=dev)
     g_out = grad_out.contiguous()
     boxes = boxes.to(torch.float32).contiguous()
     global backward_launches
     lib = cuda_build.load("roi_align")
     fn = lib.roi_align_backward_f32 if dtype == torch.float32 else lib.roi_align_backward_bf16
-    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)] + [ctypes.c_void_p] * 5 + [
+    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)] + [ctypes.c_void_p] * 7 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
@@ -426,10 +468,13 @@ def roi_align_backward(
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         status = fn(g_out.data_ptr(), _level_dims(shapes), boxes.data_ptr(),
-                    *[g.data_ptr() for g in grads], b, r, c, ph, pw, scale, LN2, stream)
+                    *[g.data_ptr() for g in grads],
+                    None if scratch is None else scratch.data_ptr(),
+                    None if marks is None else marks.data_ptr(),
+                    b, r, c, ph, pw, scale, LN2, stream)
     cuda_build.check(status, "roi_align_backward")
     backward_launches += 1
-    return grads if dtype == torch.float32 else [g.to(dtype) for g in grads]
+    return grads, marks
 
 
 def roi_align_backward_plain(

@@ -137,6 +137,58 @@ def test_roi_align_kernel_matches_plain(cuda, dtype):
             assert err <= roi_align.bf16_tolerance(feats)
 
 
+@pytest.mark.parametrize("channels", [64, 256, 20, 13])
+@pytest.mark.parametrize("crop", [(1, 1), (7, 7), (14, 14), (28, 28)])
+def test_roi_align_kernel_crops_and_channels(cuda, crop, channels):
+    # every variant of the forward: f32 bit-equal, bf16 within its tolerance,
+    # the int8 epilogues (f32 and bf16 in -> int8, int8 per channel and per
+    # tensor -> int8, int8 -> bf16) bit-equal; 20 and 13 channels fill no
+    # 16-byte vector of bf16 (nor, 13, of f32): one channel a thread
+    gen = torch.Generator().manual_seed(13)
+    f32 = [torch.randn(2, s, s, channels, generator=gen) for s in (64, 32, 16, 8)]
+    y1x1 = torch.rand(2, 100, 2, generator=gen) * 0.8
+    boxes = torch.cat([y1x1, (y1x1 + torch.rand(2, 100, 2, generator=gen)).clamp(max=1)], -1)
+    boxes[:, :10] = 0.0
+    boxes[:, 10:20, 2] = boxes[:, 10:20, 0]
+    boxes = boxes.to(cuda)
+    image = (256, 256)
+    feats = [f.to(cuda) for f in f32]
+    bf = [f.to(torch.bfloat16) for f in feats]
+    before = roi_align.launches
+    assert torch.equal(roi_align.batched_multilevel_roi_align(feats, boxes, image, crop),
+                       roi_align.batched_multilevel_roi_align_plain(feats, boxes, image, crop))
+    got = roi_align.batched_multilevel_roi_align(bf, boxes, image, crop)
+    want = roi_align.batched_multilevel_roi_align_plain(bf, boxes, image, crop)
+    assert float((got.float() - want.float()).abs().max()) <= roi_align.bf16_tolerance(bf)
+    assert roi_align.launches == before + 2
+    s_ch = (torch.rand(channels, generator=gen) * 3 + 1).to(cuda)
+    s_sc = torch.tensor(2.5, device=cuda)
+    s_out = (torch.rand(*crop, channels, generator=gen) * 3 + 0.5).to(cuda)
+    q_ch = [quant.quantize_act(f, s_ch) for f in feats]
+    q_sc = [quant.quantize_act(f, s_sc) for f in feats]
+    for fs, kw in ((feats, dict(out_quant=s_out)), (bf, dict(out_quant=s_out)),
+                   (q_ch, dict(out_quant=s_out, in_scale=s_ch)),
+                   (q_sc, dict(out_quant=s_out, in_scale=s_sc)), (q_ch, dict(in_scale=s_ch))):
+        before = roi_align.int8_launches
+        got = roi_align.batched_multilevel_roi_align(fs, boxes, image, crop, **kw)
+        assert roi_align.int8_launches == before + 1
+        want = roi_align.batched_multilevel_roi_align_plain(fs, boxes, image, crop, **kw)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_roi_align_kernel_raises_without_a_thread_layout(cuda):
+    # 300 bf16 channels fill no 16-byte vector and exceed one channel a
+    # thread: the kernel raises (300 f32 channels are 75 vectors: it runs)
+    feats = [torch.randn(1, s, s, 300, device=cuda) for s in (16, 8, 4, 2)]
+    boxes = torch.tensor([[[0.1, 0.1, 0.6, 0.7]]], device=cuda)
+    with pytest.raises(ValueError, match="layout"):
+        roi_align.batched_multilevel_roi_align([f.bfloat16() for f in feats], boxes, (64, 64),
+                                               (7, 7))
+    assert torch.equal(roi_align.batched_multilevel_roi_align(feats, boxes, (64, 64), (7, 7)),
+                       roi_align.batched_multilevel_roi_align_plain(feats, boxes, (64, 64),
+                                                                    (7, 7)))
+
+
 def test_anchor_match_kernel_matches_plain(cuda):
     rng = np.random.RandomState(1)
     ctr = rng.uniform(0.0, 1.0, (20000, 2))
@@ -182,6 +234,103 @@ def test_roi_align_backward_kernel_matches_plain(cuda, dtype):
                                                against_f32=True)
             for g, r, t in zip(got, ref, tol):
                 assert bool(((g.double() - r.double()).abs() <= t).all())
+
+
+def backward_within_bounds(grad_out, boxes, shapes, image):
+    """The gradient kernels against the plain backward (and, in bf16, the f32
+    backward) within ``backward_tolerance``, NaNs in the same places; in bf16
+    the kernels' row marks equal ``touched_row_marks``."""
+    before = roi_align.backward_launches
+    got, marks = roi_align._backward_kernel(grad_out, boxes, shapes, image)
+    assert roi_align.backward_launches == before + 1
+    want = roi_align.roi_align_backward_plain(grad_out, boxes, shapes, image)
+    refs = [(want, roi_align.backward_tolerance(grad_out, boxes, shapes, image))]
+    if grad_out.dtype == torch.bfloat16:
+        crop = tuple(grad_out.shape[2:4])
+        assert torch.equal(marks.bool(), roi_align.touched_row_marks(shapes, boxes, image, crop))
+        refs.append((roi_align.roi_align_backward_plain(grad_out.float(), boxes, shapes, image),
+                     roi_align.backward_tolerance(grad_out, boxes, shapes, image,
+                                                  against_f32=True)))
+    for ref, tol in refs:
+        for g, w, t in zip(got, ref, tol):
+            assert g.dtype == grad_out.dtype and g.shape == w.shape
+            fin = ~torch.isnan(w)
+            assert torch.equal(torch.isnan(g), ~fin)
+            assert bool(((g.double() - w.double()).abs() <= t)[fin].all())
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_kernel_under_contention(cuda, dtype):
+    # 60 zero, 60 flat and 60 tiny boxes per image at 14x14: up to 60 * 196
+    # samples land on the same four rows
+    gen = torch.Generator().manual_seed(10)
+    shapes = [(2, s, s, 64) for s in (64, 32, 16, 8)]
+    y1x1 = torch.rand(2, 200, 2, generator=gen) * 0.8
+    boxes = torch.cat([y1x1, (y1x1 + torch.rand(2, 200, 2, generator=gen) * 0.3).clamp(max=1)],
+                      -1)
+    boxes[:, :60] = 0.0
+    boxes[:, 60:120, 2] = boxes[:, 60:120, 0]
+    boxes[:, 120:180, 2:] = boxes[:, 120:180, :2] + 1e-4
+    boxes = boxes.to(cuda)
+    grad_out = torch.randn(2, 200, 14, 14, 64, generator=gen).to(cuda, dtype)
+    got = backward_within_bounds(grad_out, boxes, shapes, (256, 256))
+    assert float(got[0][0, 0, 0].float().abs().sum()) > 0
+
+
+def footprint_pixels(shapes, boxes, image, crop):
+    """Pixels of each ROI's bounding rectangle of corners on its level."""
+    corners = roi_align._corners([s[1:3] for s in shapes], boxes, image, crop)
+    li = roi_align.roi_levels(boxes, image[0] * image[1]) - 2
+    hs = torch.tensor([s[1] for s in shapes], device=boxes.device)
+    ws = torch.tensor([s[2] for s in shapes], device=boxes.device)
+    sizes = hs * ws * shapes[0][0]
+    base = torch.cumsum(sizes, 0) - sizes
+    b, r = boxes.shape[:2]
+    rows = torch.stack([rw for rw, _ in corners]).reshape(4, b, r, -1)
+    loc = rows - (base[li] + torch.arange(b, device=boxes.device)[:, None] * hs[li] * ws[li])[
+        None, :, :, None]
+    y, x = loc // ws[li][None, :, :, None], loc % ws[li][None, :, :, None]
+    return ((y.amax((0, 3)) - y.amin((0, 3)) + 1) * (x.amax((0, 3)) - x.amin((0, 3)) + 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_kernel_beyond_the_shared_tile(cuda, dtype):
+    # full-image boxes on P5 (32 x 32 pixels) and 1.0 x 0.02 flat boxes on P3
+    # (5 x 128 pixels, wide and tall) of a 1024^2 pyramid: footprints above
+    # the kernel's shared tile, which take its direct global path, beside
+    # boxes that fit
+    gen = torch.Generator().manual_seed(11)
+    image = (1024, 1024)
+    shapes = [(2, s, s, 64) for s in (256, 128, 64, 32)]
+    y1x1 = torch.rand(2, 40, 2, generator=gen) * 0.8
+    boxes = torch.cat([y1x1, (y1x1 + torch.rand(2, 40, 2, generator=gen) * 0.2).clamp(max=1)],
+                      -1)
+    boxes[:, :10] = torch.tensor([0.0, 0.0, 1.0, 1.0])
+    boxes[:, 10:20] = torch.tensor([0.305, 0.0, 0.325, 1.0])
+    boxes[:, 20:25] = torch.tensor([0.0, 0.5, 1.0, 0.52])
+    boxes = boxes.to(cuda)
+    for crop in ((7, 7), (14, 14)):
+        pixels = footprint_pixels(shapes, boxes, image, crop)
+        assert bool((pixels[:, :25] > roi_align.SHARED_PIXELS).all())
+        assert bool((pixels[:, 25:] <= roi_align.SHARED_PIXELS).any())
+        grad_out = torch.randn(2, 40, *crop, 64, generator=gen).to(cuda, dtype)
+        backward_within_bounds(grad_out, boxes, shapes, image)
+
+
+@pytest.mark.parametrize("channels", [64, 256, 20, 13])
+@pytest.mark.parametrize("crop", [(1, 1), (7, 7), (14, 14), (28, 28)])
+def test_roi_align_backward_kernel_crops_and_channels(cuda, crop, channels):
+    # 20: a partial 32-channel slice (4-channel flush); 13: the scalar flush
+    gen = torch.Generator().manual_seed(12)
+    shapes = [(2, s, s, channels) for s in (64, 32, 16, 8)]
+    y1x1 = torch.rand(2, 50, 2, generator=gen) * 0.8
+    boxes = torch.cat([y1x1, (y1x1 + torch.rand(2, 50, 2, generator=gen)).clamp(max=1)], -1)
+    boxes[:, :5] = 0.0
+    boxes = boxes.to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        grad_out = torch.randn(2, 50, *crop, channels, generator=gen).to(cuda, dtype)
+        backward_within_bounds(grad_out, boxes, shapes, (256, 256))
 
 
 def test_roi_align_output_carries_the_feature_gradient(cuda):

@@ -197,3 +197,41 @@ def test_out_of_map_gradient_matches_jax(with_nan):
         tol = troi.backward_tolerance(torch.from_numpy(cot), torch.from_numpy(boxes), shapes,
                                       E2E_IMAGE)
         assert all(bool(torch.isfinite(t).all()) for t in tol)
+
+
+
+
+def test_row_marks_hold_zero_weight_corners():
+    # a zero box samples P2's corner with weight 1: one row read, but the
+    # gradient kernels mark (and zero) all four corner rows
+    shapes = [(1, h, w, 2) for h, w in LEVELS]
+    marks = troi.touched_row_marks(shapes, torch.zeros(1, 1, 4), IMAGE, (7, 7))
+    assert torch.nonzero(marks).flatten().tolist() == [0, 1, 32, 33]
+    full = torch.tensor([[[0.0, 0.0, 1.0, 1.0]]])  # every row of P5 (4x4)
+    p5 = sum(h * w for h, w in LEVELS[:3])
+    assert troi.touched_row_marks(shapes, full, IMAGE, (7, 7)).tolist() == [
+        False] * p5 + [True] * 16
+
+
+@pytest.mark.parametrize("which", ["special", "out_of_map"])
+def test_row_marks_cover_the_jax_gradient(which):
+    # the bf16 gradient kernels zero and sum only the marked rows and write
+    # every other row as zero: JAX's gradient must reach no other row, and
+    # every nonzero-weight corner must lie on a marked one
+    rng = np.random.RandomState(9)
+    c = 4
+    shapes = [(2, h, w, c) for h, w in E2E_LEVELS]
+    boxes = special_boxes(rng, 2, 24) if which == "special" else out_of_map_boxes()
+    tboxes = torch.from_numpy(boxes)
+    for crop in ((7, 7), (14, 14)):
+        marks = troi.touched_row_marks(shapes, tboxes, E2E_IMAGE, crop).numpy()
+        cot = rng.normal(0, 1, (2, boxes.shape[1], *crop, c)).astype(np.float32)
+        _, vjp = jax.vjp(lambda *f: jroi.batched_multilevel_roi_align(
+            list(f), jnp.asarray(boxes), E2E_IMAGE, crop),
+            *[jnp.zeros(s, jnp.float32) for s in shapes])
+        flat = np.concatenate([np.asarray(g).reshape(-1, c) for g in vjp(jnp.asarray(cot))])
+        reached = (flat != 0).any(-1)  # NaN rows too
+        assert reached.any() and not (reached & ~marks).any()
+        assert marks.sum() < marks.size
+        for rows, w in troi._corners(E2E_LEVELS, tboxes, E2E_IMAGE, crop):
+            assert marks[rows[(w != 0) & (rows >= 0)].numpy()].all()
