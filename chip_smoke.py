@@ -39,7 +39,9 @@ and prints no result:
    losses alone, ms per step, device busy share, peak memory;
 7. int8 serving (``quantized_inference``): (a) the fused int8 bottleneck
    kernel at the four ResNet stage shapes of a 1024² batch of 2, bit-equal
-   to its plain version; (b) ROIAlign's int8 epilogues at the box and mask
+   to its plain version, with each stage's tile, blocks, conv 2a halo
+   factor and device time split into the block kernel and its preparation
+   kernel; (b) ROIAlign's int8 epilogues at the box and mask
    stages (bf16 in → int8 out, int8 in per channel and per tensor → int8
    out, int8 in → bf16 out), bit-equal; (c) two configurations, int8-default
    (``bench.py``'s recipe: per-channel act scales, percentile-90
@@ -161,6 +163,27 @@ def device_ms(fn, reps: int = 20) -> float:
         fail(str(e))
 
 
+def device_split(fn, reps: int = 20) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, by the profiler's
+    kernel name (torch.profiler)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            split[e.key] = split.get(e.key, 0.0) + e.self_device_time_total / 1e3 / reps
+    if not split:
+        fail("device_split: the profiler saw no device time")
+    return split
+
+
 def same(a, b) -> bool:
     """Bit-equal values with NaNs in the same places."""
     import torch
@@ -273,8 +296,8 @@ def nms_phase(device):
 
     from objectdetection_torch.ops import nms
 
-    rec = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0,
-           "library_ms": None}
+    rec = {"ms": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+           "max_abs_err": 0.0, "library_ms": None}
     for (name, n, _, _, clusters, thr, budget, serving), (boxes, cls) in zip(
             NMS_CASES, nms_case_inputs(device)):
         out_k = nms.suppress(boxes, cls, thr, budget)
@@ -339,8 +362,8 @@ def roi_phase(device):
     feats32 = [torch.randn(BATCH, h, w, c, generator=gen).to(device) for h, w in shapes]
     feats16 = [f.to(torch.bfloat16) for f in feats32]
     stages = [("box", 1000, cfg.pool_shape), ("mask", 100, cfg.mask_pool_shape)]
-    rec = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0,
-           "library_ms": None}
+    rec = {"ms": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+           "max_abs_err": 0.0, "library_ms": None}
     for name, r, crop in stages:
         boxes = roi_boxes(gen, r, device)
         k32 = roi_align.batched_multilevel_roi_align(feats32, boxes, image, crop)
@@ -819,8 +842,8 @@ def roi_backward_phase(device):
     c = cfg.fpn_channels
     r = cfg.train_rois_per_image
     shapes = [(BATCH, h, w, c) for h, w in cfg.feature_shapes()[:4]]
-    rec = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0,
-           "library_ms": None}
+    rec = {"ms": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+           "max_abs_err": 0.0, "library_ms": None}
     for name, crop in (("box", cfg.pool_shape), ("mask", cfg.mask_pool_shape)):
         boxes = roi_boxes(gen, r, device)
         g32 = torch.randn(BATCH, r, *crop, c, generator=gen).to(device)
@@ -1083,10 +1106,12 @@ def training(params, device):
 
 def block_case(gen, h: int, w: int, c3: int, c1: int, device):
     """Random int8 stream and kernels with every affine nonzero (the inputs
-    of tests/test_fused_block.py's make_case at a stage's shape, B=2)."""
+    of tests/test_fused_block.py's make_case at a stage's shape, B=2); the
+    kernels HWIO views of OIHW storage, as the backbone passes them."""
     import torch
 
-    k = lambda *s: torch.randint(-127, 128, s, generator=gen, dtype=torch.int8).to(device)
+    k = lambda *s: torch.randint(-127, 128, s, generator=gen, dtype=torch.int8).to(
+        device).permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
     v = lambda n, lo=0.5, hi=1.5: (lo + (hi - lo) * torch.rand(n, generator=gen)).to(device)
     f = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
     x8 = torch.randint(-128, 128, (BATCH, h, w, c3), generator=gen, dtype=torch.int8).to(device)
@@ -1106,8 +1131,8 @@ def fused_block_phase(device):
     from objectdetection_torch.ops import fused_block
 
     gen = torch.Generator().manual_seed(7)
-    rec = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0,
-           "library_ms": None}
+    rec = {"ms": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+           "max_abs_err": 0.0, "library_ms": None}
     for (h, w, c3, c1), n in zip(STAGES, STAGE_BLOCKS):
         args = block_case(gen, h, w, c3, c1, device)
         got = fused_block.fused_identity_block_int8(*args)
@@ -1119,7 +1144,10 @@ def fused_block_phase(device):
                  f"(max {int((got.int() - want.int()).abs().max())} steps)")
         nonzero = float((want != 0).float().mean())
         ev_ms = time_ms(lambda: fused_block.fused_identity_block_int8(*args), 20)
-        ms = device_ms(lambda: fused_block.fused_identity_block_int8(*args))
+        split = device_split(lambda: fused_block.fused_identity_block_int8(*args))
+        ms = sum(split.values())
+        kernel_ms = sum(v for k, v in split.items() if "fused_block_kernel" in k)
+        plan = fused_block.tile_plan(BATCH, h, w, c3, c1)
         plain_ms = time_ms(lambda: fused_block.fused_identity_block_int8_plain(*args), 3,
                            warmup=1)
         ops, bytes_ = fused_block.block_bound(BATCH, h, w, c3, c1)
@@ -1130,11 +1158,16 @@ def fused_block_phase(device):
         rec["ops_ms"] += n * o_ms
         rec.setdefault("bound_ms", 0.0)
         rec["bound_ms"] += n * max(b_ms, o_ms)
+        rec["kernel_ms"] += n * kernel_ms
         log(f"fused_block B={BATCH} {h}x{w} C3={c3} C1={c1} (x{n} per batch): kernel == plain "
-            f"({100 * nonzero:.1f}% nonzero codes); kernel {ms:.4f} ms device ({ev_ms:.4f} ms "
-            f"between events), plain {plain_ms:.3f} ms; bound {max(b_ms, o_ms):.4f} ms "
-            f"({ops / 1e9:.2f} GOP int8: {o_ms:.4f} ms, {bytes_ / 1e6:.1f} MB: {b_ms:.4f} ms)")
-    log(f"fused_block per batch (29 blocks): kernel {rec['ms']:.3f} ms, plain "
+            f"({100 * nonzero:.1f}% nonzero codes); {ms:.4f} ms device: block kernel "
+            f"{kernel_ms:.4f}, preparation {ms - kernel_ms:.4f} ({ev_ms:.4f} ms between "
+            f"events); {plan['th']}x{plan['tw']} tiles, {plan['grid']} blocks, conv 2a at "
+            f"{plan['halo']:.3f}x its MACs, {plan['smem']} B shared; plain {plain_ms:.3f} ms; "
+            f"bound {max(b_ms, o_ms):.4f} ms ({ops / 1e9:.2f} GOP int8: {o_ms:.4f} ms, "
+            f"{bytes_ / 1e6:.1f} MB: {b_ms:.4f} ms)")
+    log(f"fused_block per batch (29 blocks): {rec['ms']:.4f} ms (block kernel "
+        f"{rec['kernel_ms']:.4f}, preparation {rec['ms'] - rec['kernel_ms']:.4f}), plain "
         f"{rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.4f} ms")
     return rec
 
@@ -1161,8 +1194,8 @@ def roi_int8_phase(device):
     feats16 = [f.to(device, torch.bfloat16) for f in f32]
     q_ch = [quant.quantize_act(f.to(device), s_ch) for f in f32]
     q_sc = [quant.quantize_act(f.to(device), s_sc) for f in f32]
-    rec = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0,
-           "library_ms": None}
+    rec = {"ms": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+           "max_abs_err": 0.0, "library_ms": None}
     for name, r, crop in (("box", 1000, cfg.pool_shape), ("mask", 100, cfg.mask_pool_shape)):
         boxes = roi_boxes(gen, r, device)
         s_out = (torch.rand(*crop, c, generator=gen) * 2 + 3.0).to(device)

@@ -126,13 +126,15 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact int8 [M, K] × int8 [K, N] → int32 [M, N].
 
     On the card ``torch._int_mm``, which needs M > 16 and K, N multiples of
-    8: the operands are zero-padded to that and the result cut back. On the
-    CPU f32 products over chunks of 1024 input channels, each exact.
+    8, and whose cuBLASLt call refuses M not a multiple of 32 at K <= 64 on
+    an H100 (CUBLAS_STATUS_NOT_SUPPORTED): the operands are zero-padded to M
+    a multiple of 32 and K, N multiples of 8, and the result cut back. On
+    the CPU f32 products over chunks of 1024 input channels, each exact.
     """
     m, k = a.shape
     n = b.shape[1]
     if a.device.type == "cuda":
-        pad_m, pad_k, pad_n = max(17 - m, 0), (-k) % 8, (-n) % 8
+        pad_m, pad_k, pad_n = max(32 - m, (-m) % 32), (-k) % 8, (-n) % 8
         if pad_m or pad_k:
             a = F.pad(a, (0, pad_k, 0, pad_m))
         if pad_k or pad_n:

@@ -14,10 +14,13 @@ f32 atomics, so it is held elementwise within
 version), and in bf16 also within its bound of the f32 backward. The int8
 serving kernels (ROIAlign's int8 epilogues, the fused int8 bottleneck block)
 and the integer product (``torch._int_mm`` behind ``quant.int8_matmul``) are
-held bit-equal. On boxes outside the map (a NaN box, boxes whose table
-index wraps) the three ROIAlign kernels are held the same way, with NaNs in
-the plain version's places. The ROIAlign design probes (P1-P3) are held at
-small sizes: P1 within ``patch_dma.tolerance``, P2 and P3 bit-equal.
+held bit-equal; the fused block at the ResNet stage shapes, at ragged tiles,
+where most codes clip at 127 or 0, with its preparation kernel's affines equal
+to ``block_affines`` and two kernels launched a call. On boxes outside the
+map (a NaN box, boxes whose table index wraps) the three ROIAlign kernels
+are held the same way, with NaNs in the plain version's places. The ROIAlign
+design probes (P1-P3) are held at small sizes: P1 within
+``patch_dma.tolerance``, P2 and P3 bit-equal.
 """
 
 import numpy as np
@@ -381,25 +384,89 @@ def test_roi_align_int8_epilogues_match_plain(cuda, in_kind):
             assert got.dtype == want.dtype and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("h,w,c3,c1", [(64, 64, 256, 64), (16, 16, 1024, 256),
-                                       (16, 8, 2048, 512)])
-def test_fused_block_kernel_matches_plain(cuda, h, w, c3, c1):
-    rng = np.random.RandomState(6)
+def block_args(cuda, b, h, w, c3, c1, seed=6, alpha=1.0, shift=0.0, oihw=False):
+    """A fused block's arguments (tests/test_fused_block.py's make_case);
+    ``alpha`` scales every weight scale (most codes clip at 127), ``shift``
+    moves every BatchNorm shift (below 0: most codes 0); ``oihw``: kernels
+    as HWIO views of OIHW storage, as the backbone passes them."""
+    rng = np.random.RandomState(seed)
     t = lambda a: torch.from_numpy(np.array(a)).to(cuda)
     k = lambda *s: t(rng.randint(-127, 128, s).astype(np.int8))
     v = lambda n, lo=0.5, hi=1.5: t(rng.uniform(lo, hi, n).astype(np.float32))
-    x8 = t(rng.randint(-128, 128, (2, h, w, c3)).astype(np.int8))
-    args = (x8, t(np.float32(3.0)), k(1, 1, c3, c1), k(3, 3, c1, c1), k(1, 1, c1, c3),
-            v(c1) * 0.01, v(c1) * 0.002, v(c3) * 0.01,
+    x8 = t(rng.randint(-128, 128, (b, h, w, c3)).astype(np.int8))
+    ka, kb, kc = k(1, 1, c3, c1), k(3, 3, c1, c1), k(1, 1, c1, c3)
+    if oihw:
+        ka, kb, kc = (q.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0) for q in (ka, kb, kc))
+    bn = lambda n: (v(n), v(n, -0.3, 0.3) + shift)
+    return (x8, t(np.float32(3.0)), ka, kb, kc,
+            v(c1) * 0.01 * alpha, v(c1) * 0.002 * alpha, v(c3) * 0.01 * alpha,
             v(c1, -0.2, 0.2), v(c1, -0.2, 0.2), v(c3, -0.2, 0.2),
-            (v(c1), v(c1, -0.3, 0.3)), (v(c1), v(c1, -0.3, 0.3)), (v(c3), v(c3, -0.3, 0.3)),
-            t(np.float32(4.0)), t(np.float32(5.0)), t(np.float32(6.0)))
+            bn(c1), bn(c1), bn(c3), t(np.float32(4.0)), t(np.float32(5.0)), t(np.float32(6.0)))
+
+
+@pytest.mark.parametrize("b,h,w,c3,c1", [
+    (2, 64, 64, 256, 64), (2, 16, 16, 1024, 256), (2, 16, 8, 2048, 512),
+    # the four R101 stage shapes of a 1024² image
+    (1, 256, 256, 256, 64), (1, 128, 128, 512, 128), (1, 64, 64, 1024, 256),
+    (1, 32, 32, 2048, 512),
+    # ragged: W = 3, W = 12, H = 16 over two row tiles with a ragged last
+    # column tile; a batch of 3
+    (1, 16, 3, 128, 64), (1, 16, 12, 32, 64), (1, 16, 2044, 64, 64), (3, 16, 16, 256, 64),
+    # W·C3 = 131072: the row kernel before the tiled one refused it
+    (1, 16, 512, 256, 64),
+])
+def test_fused_block_kernel_matches_plain(cuda, b, h, w, c3, c1):
+    args = block_args(cuda, b, h, w, c3, c1)
     before = fused_block.launches
     got = fused_block.fused_identity_block_int8(*args)
     assert fused_block.launches == before + 1
     want = fused_block.fused_identity_block_int8_plain(*args)
     assert torch.equal(got, want)
     assert int((want != 0).sum()) > want.numel() // 4  # the block is not all clipped
+
+
+@pytest.mark.parametrize("alpha,shift,code,share", [(40.0, 0.0, 127, 0.3), (1.0, -60.0, 0, 0.9)])
+def test_fused_block_kernel_matches_plain_when_codes_clip(cuda, alpha, shift, code, share):
+    args = block_args(cuda, 2, 16, 16, 256, 64, seed=9, alpha=alpha, shift=shift)
+    got = fused_block.fused_identity_block_int8(*args)
+    want = fused_block.fused_identity_block_int8_plain(*args)
+    assert torch.equal(got, want)
+    assert float((want == code).float().mean()) > share
+
+
+def test_fused_block_preparation_matches_block_affines(cuda):
+    for oihw in (False, True):
+        args = block_args(cuda, 1, 16, 16, 1024, 256, seed=10, oihw=oihw)
+        x8, in_scale, ka8, kb8, kc8 = args[:5]
+        c1, c3, kch = 256, 1024, 128
+        aff, ka, kb, kc = fused_block.prepare(cuda, kch, *args[1:])
+        want = fused_block.block_affines(args[1], *args[5:])
+        got = torch.split(aff, (c1, c1, c1, c1, c3, c3, 1))
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_.reshape(-1).expand(g.numel()))
+        assert torch.equal(ka, ka8[0, 0].t()) and torch.equal(kc, kc8[0, 0].t())
+        ohwi = kb8.permute(3, 0, 1, 2).reshape(c1, 9 * c1)  # 9·c1 = 18 chunks of kch
+        assert torch.equal(kb, ohwi.view(c1, 9 * c1 // kch, kch).transpose(0, 1))
+        if oihw:  # the 1x1 kernels are read in place
+            assert ka.data_ptr() == ka8.data_ptr() and kc.data_ptr() == kc8.data_ptr()
+
+
+def test_fused_block_launches_two_kernels_per_call(cuda):
+    args = block_args(cuda, 2, 16, 16, 256, 64, oihw=True)
+    fused_block.fused_identity_block_int8(*args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        before = fused_block.launches
+        got = fused_block.fused_identity_block_int8(*args)
+        torch.cuda.synchronize()
+    assert fused_block.launches == before + 1
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    assert len(names) == 2, names
+    assert sum("fused_block_prep_kernel" in n for n in names) == 1, names
+    assert sum("fused_block_kernel" in n for n in names) == 1, names
+    assert torch.equal(got, fused_block.fused_identity_block_int8_plain(*args))
 
 
 def test_int8_matmul_is_exact_on_the_card(cuda):
