@@ -27,7 +27,8 @@ and prints no result:
    runs at ``detection_min_threshold=0.0``, bf16 and f32, are held stage by
    stage against the plain path on the card;
 5. the training kernels against their plain versions at the main path's
-   shapes: anchor matching (COCO anchors × 100 GT, B=2, exact) and the
+   shapes: anchor matching (COCO anchors × 100 GT, B=2, exact; its bound
+   counts the overlapping pairs, the dense count is logged) and the
    ROIAlign gradient (7×7 and 14×14, R=200 per image, f32 and bf16, within
    the stated bound of ``roi_align.backward_tolerance``);
 6. training at full width: COCO_CONFIG, batch 2, masks on (56×56
@@ -165,8 +166,10 @@ def device_ms(fn, reps: int = 20) -> float:
 
 def device_split(fn, reps: int = 20) -> dict:
     """Device ms per call of each kernel ``fn`` launches, by the profiler's
-    kernel name (torch.profiler)."""
+    kernel name (torch.profiler, ``probes.common.per_call_ms``)."""
     import torch
+
+    from objectdetection_torch.probes import common
 
     fn()
     torch.cuda.synchronize()
@@ -175,10 +178,7 @@ def device_split(fn, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            split[e.key] = split.get(e.key, 0.0) + e.self_device_time_total / 1e3 / reps
+    split = common.per_call_ms(prof, reps)
     if not split:
         fail("device_split: the profiler saw no device time")
     return split
@@ -798,6 +798,7 @@ def match_phase(device):
 
     from objectdetection_torch.anchors import config_anchors
     from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.geometry import iou_matrix
     from objectdetection_torch.ops import anchor_match
 
     cfg = COCO_CONFIG
@@ -814,16 +815,23 @@ def match_phase(device):
     ev_ms = time_ms(lambda: anchor_match.anchor_match(anchors, gt, valid), 50)
     ms = device_ms(lambda: anchor_match.anchor_match(anchors, gt, valid))
     plain_ms = time_ms(lambda: anchor_match.anchor_match_plain(anchors, gt, valid), 3, warmup=1)
-    tests = a * int(valid.sum())  # the kernel skips invalid GTs
+    # the bound counts the tests no exact kernel can skip: the pairs whose
+    # boxes overlap (IoU > 0 with a valid GT); the kernel culls the rest by
+    # tile. The dense count (every anchor with every valid GT) is logged.
+    dense = a * int(valid.sum())
+    overlap = int(((iou_matrix(anchors, gt) > 0) & valid[:, None, :]).sum())
     bytes_ = a * 16 + gt.numel() * 4 + valid.numel() + BATCH * a * 8 + BATCH * g * 8
-    ops = tests * MATCH_OPS
+    ops = overlap * MATCH_OPS
     rec = {"ms": ms, "plain_ms": plain_ms, "bytes_ms": bytes_ / PEAK_BYTES * 1e3,
            "ops_ms": ops / PEAK_F32 * 1e3, "max_abs_err": 0.0, "library_ms": None}
+    dense_ms = dense * MATCH_OPS / PEAK_F32 * 1e3
     log(f"anchor_match: B={BATCH} A={a} G={g} ({int(valid.sum())} valid): kernel == plain "
         f"(maxima bit-equal, argmaxes equal); kernel {ms:.4f} ms device ({ev_ms:.4f} ms "
         f"between events), plain {plain_ms:.3f} ms; "
-        f"bound {max(rec['bytes_ms'], rec['ops_ms']):.4f} ms ({ops / 1e9:.3f} GFLOP f32, "
-        f"{bytes_ / 1e6:.1f} MB)")
+        f"bound {max(rec['bytes_ms'], rec['ops_ms']):.4f} ms ({overlap} overlapping pairs, "
+        f"{ops / 1e9:.4f} GFLOP f32: {rec['ops_ms']:.5f} ms; {bytes_ / 1e6:.1f} MB: "
+        f"{rec['bytes_ms']:.5f} ms); dense bound {max(rec['bytes_ms'], dense_ms):.4f} ms "
+        f"({dense} pairs)")
     return rec
 
 

@@ -17,22 +17,22 @@
 // P2 `roi_inner_probe` replaces benchmarks/roi_inner_probe.py `kernel` (:39,
 // pallas_call :158), every variant: per ROI, 7 x-blends of a resident
 // [32, 32*C] bf16 patch, xb[k, q*C + c] = bf16((1-w_q)*v0 + w_q*v1) in f32,
-// then out = bf16(wy @ xb) with wy [7, 32] bf16 built from geom. The patch
-// (512 KB) exceeds a block's shared memory, so it is read through L2 (it
-// stays resident there). One block per ROI (per pair for pair2); thread c
-// owns channel c, and for each q and each patch row k computes xb once and
-// adds wy[r, k] * xb into 7 f32 accumulators: the dense product, in k order.
-// Exactness: wy has at most two nonzero entries per row, every bf16 product
-// is exact in f32, and adding an exact zero changes nothing, so each output
-// is one rounding of a two-term sum whatever the order: bit-equal to the
-// plain version (which multiplies in f32). What bounds it: bytes (the
-// 2.41 GB output at n = 96000); the CUDA-core product costs 2*7*32 f32
-// operations per xb value.
+// then out = bf16(wy @ xb) with wy [7, 32] bf16 built from geom. What bounds
+// it: bytes (the 2.41 GB output at n = 96000, 0.72 ms), but the blend's ~6
+// CUDA-core instructions per xb value (two bf16 unpacks, 2 mul, 1 add, half
+// a pack and a load: 5.5 G values a call) set a floor above that. Design:
+// the patch (512 KB) split into 4 slices of 64 channels, each resident in a
+// block's shared memory (the TPU kernel's resident VMEM patch), loaded once
+// with cp.async by a persistent grid of (ROI range, slice) blocks, one a SM;
+// the y-product on bf16 tensor cores (mma.sync m16n8k16), split by tap so
+// that it stays exact (below, at `roi_inner_kernel`).
 //
 // P3 `roi_dispatch_probe` replaces benchmarks/roi_dispatch_probe.py `kernel`
 // (:61, pallas_call :250), variants bare, dispatch and dispatch_small: P2's
-// body (x1 = x0 + 1) behind the per-ROI (level, class) dispatch. The top
-// class blends the resident [32, 32*C] bf16 patch; a small class (py, px) in
+// function (x1 = x0 + 1) behind the per-ROI (level, class) dispatch, one
+// block a ROI, thread c channel c, the product on CUDA cores (`RoiTab`,
+// `fill_wy`, `xblend`). The top class blends the resident [32, 32*C] bf16
+// patch read through L2; a small class (py, px) in
 // {(8,8), (16,16), (24,24)} copies its int8 [py, px*C] patch from feats[img,
 // 8*yq :, x0*C :] into shared memory, casts to bf16 (exact) and blends the
 // same way. A (24, 24) patch is 147 KB, so a block stages 4 patch rows at a
@@ -177,65 +177,303 @@ __device__ __forceinline__ float xblend(float v0, float v1, float w) {
   return bf16r(__fadd_rn(__fmul_rn(__fsub_rn(1.0f, w), v0), __fmul_rn(w, v1)));
 }
 
+// P2. A block owns one slice of P2_CS channels of the patch, resident in
+// shared memory ([k][x][channel] bf16, each k row padded by 16 bytes so that
+// a warp's loads of one (x, k + 2t) hit 32 distinct banks), and walks a
+// range of work units (ROIs; pairs for pair2). Warp w takes the slice's
+// 16-channel group w % P2_GROUPS of every P2_STREAMS-th unit of the range:
+// no barrier after the slice's load. Per (ROI, q), the warp computes the
+// transposed product D^T[16 channels, 8] = xb^T[16, 32] @ wy^T[32, 8] on
+// mma.sync m16n8k16 (bf16 in, f32 accumulation): the A fragments are the
+// x-blends, computed in f32 straight into registers (row g of the fragment
+// is channel 2g of the group, row g + 8 channel 2g + 1, so one 32-bit load
+// gives both channels of a lane), and the B fragments (column n = output row
+// r = n, r = 7 zero) are built once a ROI. Split taps: B0 holds wy's entry
+// at y0 of each row (where y0 == y1, the single entry fill_wy makes), B1 the
+// entry at y1 where y1 != y0; each accumulator then holds one exact
+// bf16 x bf16 product plus exact zeros, and bf16(__fadd_rn(D0, D1)) is the
+// plain version's single rounding of a two-term sum. nomatmul, which has no
+// product, has a kernel of its own (`roi_inner_rows_kernel`).
+
+constexpr int P2_CS = 64;                          // channels of a slice
+constexpr int P2_SLICES = C / P2_CS;               // 4
+constexpr int P2_GROUPS = P2_CS / 16;              // 16-channel groups a slice
+constexpr int P2_WARPS = 16;
+constexpr int P2_THREADS = P2_WARPS * 32;
+constexpr int P2_STREAMS = P2_WARPS / P2_GROUPS;   // units a block has in flight
+constexpr int P2_ROW = PX * P2_CS / 2 + 4;         // a k row in 32-bit words, padded
+constexpr int P2_SMEM = PY * P2_ROW * 4;           // 131,584 bytes
+
+// two f32 -> bf16x2 (round to nearest even): lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ float lo_bf16(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_bf16(unsigned w) { return __uint_as_float(w & 0xFFFF0000u); }
+
+// the blend before its rounding to bf16: (1 - w) * v0 + w * v1 in f32
+__device__ __forceinline__ float blend(float om, float w, float v0, float v1) {
+  return __fadd_rn(__fmul_rn(om, v0), __fmul_rn(w, v1));
+}
+
+// d += a @ b, m16n8k16, bf16 in, f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a lane's inputs of one unit: lane q < 7 the columns and weight of blend q;
+// lanes of group g < 7 output row g's geometry (y0, y1, w; not for nomatmul)
+struct P2In {
+  int x0, x1;
+  float wq, y0, y1, wy;
+};
+
 template <int V>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ long long p2_roi(int u) {
+  return V == PAIR2 ? 2LL * u + 1 : u;  // pair2: unit u computes ROI 2u+1
+}
+
+template <int V>
+__device__ __forceinline__ P2In p2_fetch(const int* __restrict__ xint,
+                                         const float* __restrict__ wx,
+                                         const float* __restrict__ geom, long long roi, int lane) {
+  P2In r{0, 0, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (lane < POOL) {
+    r.x0 = __ldg(xint + roi * 2 * POOL + lane);
+    r.x1 = __ldg(xint + roi * 2 * POOL + POOL + lane);
+    r.wq = __ldg(wx + roi * POOL + lane);
+  }
+  const int g = lane >> 2;
+  if (V != NOMATMUL && g < POOL) {  // nomatmul has no product
+    const float* gr = geom + (roi * POOL + g) * 4;
+    r.y0 = __ldg(gr);
+    r.y1 = __ldg(gr + 1);
+    r.wy = __ldg(gr + 2);
+  }
+  return r;
+}
+
+// grid (ranges, P2_SLICES); units: n, or n / 2 for pair2
+template <int V>
+__global__ void __launch_bounds__(P2_THREADS, 1)
 roi_inner_kernel(const int* __restrict__ xint, const float* __restrict__ wx,
                  const float* __restrict__ geom, const __nv_bfloat16* __restrict__ patch,
-                 __nv_bfloat16* __restrict__ out, int* err) {
-  __shared__ RoiTab t;
-  // pair2: block m computes ROI 2m+1 and writes it to rows 2m and 2m+1
-  const long long roi = V == PAIR2 ? 2LL * blockIdx.x + 1 : blockIdx.x;
-  if (threadIdx.x < POOL) {
-    const int q = threadIdx.x;
-    int x0 = xint[roi * 2 * POOL + q], x1 = xint[roi * 2 * POOL + POOL + q];
-    if (V == STATIC_X) {
-      x0 = 4 * q;
-      x1 = 4 * q + 1;
-    } else if (V == WIDE2C) {
-      x1 = x0 + 1;
+                 __nv_bfloat16* __restrict__ out, int units, int* err) {
+  extern __shared__ __align__(16) unsigned s_patch[];  // [PY][P2_ROW] words
+  const int slice = blockIdx.y;
+  const int u0 = (int)((long long)units * blockIdx.x / gridDim.x);
+  const int u1 = (int)((long long)units * (blockIdx.x + 1) / gridDim.x);
+  if (u0 >= u1) return;
+  for (int e = threadIdx.x; e < PY * PX * (P2_CS / 8); e += P2_THREADS) {
+    const int piece = e % (P2_CS / 8), kx = e / (P2_CS / 8), k = kx / PX, x = kx % PX;
+    cp_async16(s_patch + k * P2_ROW + x * (P2_CS / 2) + piece * 4,
+               patch + (size_t)kx * C + slice * P2_CS + piece * 8);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int grp = warp % P2_GROUPS;
+  const unsigned* sp = s_patch + grp * 8 + g;  // channels 2g, 2g+1 of the group at k = x = 0
+  const int ch = slice * P2_CS + grp * 16 + 2 * g;
+  // a unit's inputs are fetched one unit ahead, so their latency hides
+  // behind the unit before
+  int u = u0 + warp / P2_GROUPS;
+  P2In cur{0, 0, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (u < u1) cur = p2_fetch<V>(xint, wx, geom, p2_roi<V>(u), lane);
+  for (; u < u1; u += P2_STREAMS) {
+    const long long roi = p2_roi<V>(u);
+    const P2In nxt =
+        u + P2_STREAMS < u1 ? p2_fetch<V>(xint, wx, geom, p2_roi<V>(u + P2_STREAMS), lane) : cur;
+    // lane q < 7: the columns and weight of blend q
+    int x0 = cur.x0, x1 = cur.x1;
+    const float wq = cur.wq;
+    if (lane < POOL) {
+      if (V == STATIC_X) {
+        x0 = 4 * lane;
+        x1 = 4 * lane + 1;
+      } else if (V == WIDE2C) {
+        x1 = x0 + 1;
+      }
+      if (V != NOBLEND && (x0 < 0 || x0 >= PX || x1 < 0 || x1 >= PX)) {
+        if (slice == 0 && grp == 0) atomicOr(err, 1);
+        x0 = x1 = 0;
+      }
     }
-    if (V != NOBLEND && (x0 < 0 || x0 >= PX || x1 < 0 || x1 >= PX)) {
+    // B fragments [split][k step][register]: k = 16 s + 8 i + 2 t (+1), column g
+    unsigned b[2][2][2] = {{{0u, 0u}, {0u, 0u}}, {{0u, 0u}, {0u, 0u}}};
+    if (g < POOL) {
+      const int y0 = xla_to_s32(cur.y0), y1 = xla_to_s32(cur.y1);
+      const float w = cur.wy;
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float tap[2][2];  // [split][k, k + 1]
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int k = 16 * s + 8 * i + 2 * t + j;
+            // fill_wy's entry at k
+            const float wy = bf16r(__fadd_rn(k == y0 ? __fsub_rn(1.0f, w) : 0.0f,
+                                             k == y1 ? w : 0.0f));
+            tap[0][j] = k == y0 ? wy : 0.0f;
+            tap[1][j] = k == y1 && y1 != y0 ? wy : 0.0f;
+          }
+          b[0][s][i] = pack_bf16(tap[0][0], tap[0][1]);
+          b[1][s][i] = pack_bf16(tap[1][0], tap[1][1]);
+        }
+    }
+    cur = nxt;
+    __nv_bfloat16* o = out + (size_t)roi * POOL * POOL * C + ch;
+#pragma unroll
+    for (int q = 0; q < POOL; ++q) {
+      const int xa = __shfl_sync(0xFFFFFFFFu, x0, q), xc = __shfl_sync(0xFFFFFFFFu, x1, q);
+      const float w = __shfl_sync(0xFFFFFFFFu, wq, q), om = __fsub_rn(1.0f, w);
+      const unsigned* p0 = sp + xa * (P2_CS / 2);
+      const unsigned* p1 = sp + xc * (P2_CS / 2);
+      __nv_bfloat16* oq = o + q * C;
+      unsigned a[2][4];  // [k step][register]: rows g (channel 2g), g + 8 (2g + 1)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (V == NOBLEND) {  // the product of a zero xb
+            a[s][2 * i] = a[s][2 * i + 1] = 0u;
+            continue;
+          }
+          const int k = 16 * s + 8 * i + 2 * t;
+          const unsigned v0 = p0[k * P2_ROW], v1 = p1[k * P2_ROW];
+          const unsigned n0 = p0[(k + 1) * P2_ROW], n1 = p1[(k + 1) * P2_ROW];
+          a[s][2 * i] = pack_bf16(blend(om, w, lo_bf16(v0), lo_bf16(v1)),
+                                  blend(om, w, lo_bf16(n0), lo_bf16(n1)));
+          a[s][2 * i + 1] = pack_bf16(blend(om, w, hi_bf16(v0), hi_bf16(v1)),
+                                      blend(om, w, hi_bf16(n0), hi_bf16(n1)));
+        }
+      float d0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, d1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_bf16(d0, a[0], b[0][0][0], b[0][0][1]);
+      mma_bf16(d0, a[1], b[0][1][0], b[0][1][1]);
+      mma_bf16(d1, a[0], b[1][0][0], b[1][0][1]);
+      mma_bf16(d1, a[1], b[1][1][0], b[1][1][1]);
+      // d[0], d[1]: channel 2g at rows 2t, 2t+1; d[2], d[3]: channel 2g+1
+      const unsigned r0 = pack_bf16(__fadd_rn(d0[0], d1[0]), __fadd_rn(d0[2], d1[2]));
+      const unsigned r1 = pack_bf16(__fadd_rn(d0[1], d1[1]), __fadd_rn(d0[3], d1[3]));
+      *reinterpret_cast<unsigned*>(oq + (size_t)(2 * t) * POOL * C) = r0;
+      if (2 * t + 1 < POOL) *reinterpret_cast<unsigned*>(oq + (size_t)(2 * t + 1) * POOL * C) = r1;
+      if (V == PAIR2) {  // unit u computes ROI 2u+1 and writes rows 2u and 2u+1
+        __nv_bfloat16* op = oq - (size_t)POOL * POOL * C;
+        *reinterpret_cast<unsigned*>(op + (size_t)(2 * t) * POOL * C) = r0;
+        if (2 * t + 1 < POOL)
+          *reinterpret_cast<unsigned*>(op + (size_t)(2 * t + 1) * POOL * C) = r1;
+      }
+    }
+  }
+}
+
+// nomatmul: out rows 0..6 = xb rows 0..6, no product, so only patch rows
+// 0..6 are read: every channel of them (112 KB) stays in one block's shared
+// memory, and a warp writes a whole ROI, 512 contiguous bytes a (row, q),
+// lane l channels 8l .. 8l+7, with streaming stores (the output is written
+// once). grid: blocks, one a SM.
+constexpr int P2_ROWS_SMEM = POOL * PX * C * 2;  // 114,688 bytes
+
+__global__ void __launch_bounds__(P2_THREADS, 1)
+roi_inner_rows_kernel(const int* __restrict__ xint, const float* __restrict__ wx,
+                      const __nv_bfloat16* __restrict__ patch, __nv_bfloat16* __restrict__ out,
+                      int n, int* err) {
+  extern __shared__ __align__(16) uint4 s_rows[];  // [POOL][PX][C] bf16, 8 channels an entry
+  if ((int)blockIdx.x * P2_WARPS >= n) return;
+  for (int e = threadIdx.x; e < P2_ROWS_SMEM / 16; e += P2_THREADS)
+    cp_async16(s_rows + e, reinterpret_cast<const uint4*>(patch) + e);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int step = (int)gridDim.x * P2_WARPS;  // blocks take consecutive ROIs in turns
+  int u = blockIdx.x * P2_WARPS + warp;
+  P2In cur{0, 0, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (u < n) cur = p2_fetch<NOMATMUL>(xint, wx, nullptr, u, lane);
+  for (; u < n; u += step) {
+    const long long roi = u;
+    const P2In nxt = u + step < n ? p2_fetch<NOMATMUL>(xint, wx, nullptr, u + step, lane) : cur;
+    int x0 = cur.x0, x1 = cur.x1;
+    if (lane < POOL && (x0 < 0 || x0 >= PX || x1 < 0 || x1 >= PX)) {
       atomicOr(err, 1);
       x0 = x1 = 0;
     }
-    t.x0[q] = x0;
-    t.x1[q] = x1;
-    t.wq[q] = wx[roi * POOL + q];
-  }
-  fill_wy(geom + roi * POOL * 4, PY, t);
-  __syncthreads();
-  const int c = threadIdx.x;  // THREADS == C
-  for (int q = 0; q < POOL; ++q) {
-    const int col = q * C + c;
-    const __nv_bfloat16* p0 = patch + (size_t)t.x0[q] * C + c;
-    const __nv_bfloat16* p1 = patch + (size_t)t.x1[q] * C + c;
-    const float w = t.wq[q];
-    if (V == NOMATMUL) {  // out = xb rows 0..6
-      for (int r = 0; r < POOL; ++r) {
-        const float xb = xblend(__bfloat162float(p0[(size_t)r * PX * C]),
-                                __bfloat162float(p1[(size_t)r * PX * C]), w);
-        out[(roi * POOL + r) * POOL * C + col] = __float2bfloat16_rn(xb);
+    const float wq = cur.wq;
+    cur = nxt;
+    uint4* o = reinterpret_cast<uint4*>(out + (size_t)roi * POOL * POOL * C) + lane;
+    int xa[POOL], xc[POOL];
+    float w[POOL], om[POOL];
+#pragma unroll
+    for (int q = 0; q < POOL; ++q) {
+      xa[q] = __shfl_sync(0xFFFFFFFFu, x0, q);
+      xc[q] = __shfl_sync(0xFFFFFFFFu, x1, q);
+      w[q] = __shfl_sync(0xFFFFFFFFu, wq, q);
+      om[q] = __fsub_rn(1.0f, w[q]);
+    }
+    // row by row: the warp writes the ROI's 25 KB in address order
+#pragma unroll 1
+    for (int k = 0; k < POOL; ++k) {
+#pragma unroll
+      for (int q = 0; q < POOL; ++q) {
+        const uint4 v0 = s_rows[(k * PX + xa[q]) * (C / 8) + lane];
+        const uint4 v1 = s_rows[(k * PX + xc[q]) * (C / 8) + lane];
+        uint4 r;
+        r.x = pack_bf16(blend(om[q], w[q], lo_bf16(v0.x), lo_bf16(v1.x)),
+                        blend(om[q], w[q], hi_bf16(v0.x), hi_bf16(v1.x)));
+        r.y = pack_bf16(blend(om[q], w[q], lo_bf16(v0.y), lo_bf16(v1.y)),
+                        blend(om[q], w[q], hi_bf16(v0.y), hi_bf16(v1.y)));
+        r.z = pack_bf16(blend(om[q], w[q], lo_bf16(v0.z), lo_bf16(v1.z)),
+                        blend(om[q], w[q], hi_bf16(v0.z), hi_bf16(v1.z)));
+        r.w = pack_bf16(blend(om[q], w[q], lo_bf16(v0.w), lo_bf16(v1.w)),
+                        blend(om[q], w[q], hi_bf16(v0.w), hi_bf16(v1.w)));
+        __stcs(o + (k * POOL * C + q * C) / 8, r);  // written once: evict first
       }
-      continue;
-    }
-    float acc[POOL];
-#pragma unroll
-    for (int r = 0; r < POOL; ++r) acc[r] = 0.0f;
-    for (int k = 0; k < PY; ++k) {
-      // noblend: the TPU kernel reads a scratch it never writes; here zero
-      const float xb = V == NOBLEND ? 0.0f
-                                    : xblend(__bfloat162float(p0[(size_t)k * PX * C]),
-                                             __bfloat162float(p1[(size_t)k * PX * C]), w);
-#pragma unroll
-      for (int r = 0; r < POOL; ++r) acc[r] = __fadd_rn(acc[r], __fmul_rn(t.wy[r][k], xb));
-    }
-#pragma unroll
-    for (int r = 0; r < POOL; ++r) {
-      const __nv_bfloat16 v = __float2bfloat16_rn(acc[r]);
-      out[(roi * POOL + r) * POOL * C + col] = v;
-      if (V == PAIR2) out[((roi - 1) * POOL + r) * POOL * C + col] = v;
     }
   }
+}
+
+// the number of SMs of the current device, for the persistent grids
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  return e != cudaSuccess ? e : cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+template <int V>
+int launch_inner(const int* xint, const float* wx, const float* geom, const __nv_bfloat16* patch,
+                 __nv_bfloat16* out, int units, int* err, cudaStream_t s) {
+  int sms = 0;
+  cudaError_t e = cudaFuncSetAttribute(roi_inner_kernel<V>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, P2_SMEM);
+  if (e == cudaSuccess) e = sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  // one block a SM: ranges of units for each slice, each at least a unit a stream
+  const int ranges = max(1, min(sms / P2_SLICES, (units + P2_STREAMS - 1) / P2_STREAMS));
+  roi_inner_kernel<V><<<dim3(ranges, P2_SLICES), P2_THREADS, P2_SMEM, s>>>(
+      xint, wx, geom, patch, out, units, err);
+  return (int)cudaGetLastError();
+}
+
+int launch_rows(const int* xint, const float* wx, const __nv_bfloat16* patch,
+                __nv_bfloat16* out, int n, int* err, cudaStream_t s) {
+  int sms = 0;
+  cudaError_t e = cudaFuncSetAttribute(roi_inner_rows_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, P2_ROWS_SMEM);
+  if (e == cudaSuccess) e = sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = max(1, min(sms, (n + P2_WARPS - 1) / P2_WARPS));
+  roi_inner_rows_kernel<<<blocks, P2_THREADS, P2_ROWS_SMEM, s>>>(xint, wx, patch, out, n, err);
+  return (int)cudaGetLastError();
 }
 
 // P3. meta [n, 8]: img, level, class, yq, x0 (patch column); feats [B, fh,
@@ -390,28 +628,21 @@ extern "C" int roi_inner_probe(const int* xint, const float* wx, const float* ge
                                const void* patch, void* out, int n, int variant, int* err,
                                void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)patch % 16) return (int)cudaErrorInvalidValue;  // cp.async pieces
   const auto* pt = (const __nv_bfloat16*)patch;
   auto* o = (__nv_bfloat16*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (variant) {
-    case FULL: roi_inner_kernel<FULL><<<n, THREADS, 0, s>>>(xint, wx, geom, pt, o, err); break;
-    case STATIC_X:
-      roi_inner_kernel<STATIC_X><<<n, THREADS, 0, s>>>(xint, wx, geom, pt, o, err);
-      break;
-    case WIDE2C: roi_inner_kernel<WIDE2C><<<n, THREADS, 0, s>>>(xint, wx, geom, pt, o, err); break;
-    case NOMATMUL:
-      roi_inner_kernel<NOMATMUL><<<n, THREADS, 0, s>>>(xint, wx, geom, pt, o, err);
-      break;
-    case NOBLEND:
-      roi_inner_kernel<NOBLEND><<<n, THREADS, 0, s>>>(xint, wx, geom, pt, o, err);
-      break;
+    case FULL: return launch_inner<FULL>(xint, wx, geom, pt, o, n, err, s);
+    case STATIC_X: return launch_inner<STATIC_X>(xint, wx, geom, pt, o, n, err, s);
+    case WIDE2C: return launch_inner<WIDE2C>(xint, wx, geom, pt, o, n, err, s);
+    case NOMATMUL: return launch_rows(xint, wx, pt, o, n, err, s);
+    case NOBLEND: return launch_inner<NOBLEND>(xint, wx, geom, pt, o, n, err, s);
     case PAIR2:
       if (n % 2) return (int)cudaErrorInvalidValue;
-      roi_inner_kernel<PAIR2><<<n / 2, THREADS, 0, s>>>(xint, wx, geom, pt, o, err);
-      break;
+      return launch_inner<PAIR2>(xint, wx, geom, pt, o, n / 2, err, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // P3. meta [n, 8] int32, xint [n, 7] int32, wx [n, 7] f32, geom [n, 7, 4] f32,

@@ -12,13 +12,17 @@ the lowest index, so a GT that is invalid or overlaps no anchor comes out as
 (0, 0), as in JAX.
 
 :func:`anchor_match` launches the kernel for CUDA tensors and runs
-:func:`anchor_match_plain` for CPU tensors.
+:func:`anchor_match_plain` for CPU tensors. The kernel tests only the GTs
+that can overlap each tile of 128 consecutive anchors (its cull is modelled
+in tests/test_torch_anchor_match.py), and is one launch a call: its
+per-GT keys live in a scratch kept per (device, stream, B, G) that the
+kernel's last block leaves clean for the next call.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -26,6 +30,8 @@ from objectdetection_torch.geometry import iou_matrix
 from objectdetection_torch.ops import cuda_build
 
 launches = 0  # kernel launches (never counts the plain version)
+EMPTY_KEY = 0xFFFFFFFF  # the kernel's per-GT key for IoU 0, anchor 0
+_scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 class AnchorMatch(NamedTuple):
@@ -62,7 +68,9 @@ def anchor_match(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     dev = anchors.device
     anchors = anchors.to(torch.float32).contiguous()
     gt = gt_boxes.to(torch.float32).contiguous()
-    valid = gt_valid.to(torch.uint8).contiguous()
+    # bool and uint8 hold 0 / nonzero in one byte: the kernel reads either as they are
+    valid = (gt_valid if gt_valid.dtype in (torch.bool, torch.uint8)
+             else gt_valid.to(torch.uint8)).contiguous()
     out = AnchorMatch(
         torch.empty((b, a), dtype=torch.float32, device=dev),
         torch.empty((b, a), dtype=torch.int32, device=dev),
@@ -71,15 +79,19 @@ def anchor_match(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     )
     if a == 0 or b == 0:
         return out
-    keys = torch.empty((b, g), dtype=torch.int64, device=dev)
     global launches
     fn = cuda_build.load("anchor_match").anchor_match
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (dev, stream, b, g)
+    if key not in _scratch:  # keys at IoU 0, anchor 0 and the done counter at 0
+        _scratch[key] = (torch.full((b, g), EMPTY_KEY, dtype=torch.int64, device=dev),
+                         torch.zeros(1, dtype=torch.int32, device=dev))
+    keys, done = _scratch[key]
     with torch.cuda.device(dev):
         status = fn(anchors.data_ptr(), gt.data_ptr(), valid.data_ptr(), b, a, g,
-                    *[t.data_ptr() for t in out], keys.data_ptr(), stream)
+                    *[t.data_ptr() for t in out], keys.data_ptr(), done.data_ptr(), stream)
     cuda_build.check(status, "anchor_match")
     launches += 1
     return out

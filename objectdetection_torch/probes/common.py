@@ -4,7 +4,7 @@ limit, device timing, and the timed run of a probe entry point."""
 from __future__ import annotations
 
 import subprocess
-from typing import Callable, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -31,6 +31,20 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def per_call_ms(prof, reps: int) -> Dict[str, float]:
+    """Device ms per call of each kernel name in a profile of ``reps`` calls:
+    the mean of the records the profiler kept, times the launches a call
+    makes (its records over ``reps``, rounded). The profiler can lose a
+    record (it once dropped one launch in five, which read as a time below
+    the byte bound); this keeps such a loss from shrinking the time."""
+    out: Dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count and e.self_device_time_total:
+            launches = max(1, round(e.count / reps))
+            out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total / e.count * launches / 1e3
+    return out
+
+
 def device_ms(fn: Callable[[], object], reps: int = 20) -> float:
     """Device time per call of everything ``fn`` launches, from
     torch.profiler (CUDA events around back-to-back calls measure the host
@@ -42,8 +56,7 @@ def device_ms(fn: Callable[[], object], reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    total = sum(per_call_ms(prof, reps).values())
     if not total > 0:
         raise RuntimeError("device_ms: the profiler saw no device time")
     return total

@@ -22,8 +22,12 @@ prints ``ms for N ROIs (us/ROI)`` and the card's name and power limit.
 
 Exactness: xb = bf16(f32((1 - w)·v0 + w·v1)); wy has at most two nonzero
 bf16 entries per row and each bf16 product is exact in f32, so every output
-is one rounding of a two-term sum whatever the order of the sum: the kernel
-is bit-equal to the plain version.
+is one rounding of a two-term sum whatever the order of the sum. The kernel
+keeps each 64-channel slice of the patch in a block's shared memory and
+runs the product on bf16 tensor cores split by tap: wy's entries at y0, and
+at y1 where y1 != y0, go into two products whose accumulators each hold one
+exact product, added in one f32 addition (``nomatmul`` keeps patch rows 0-6
+of every channel instead). It is bit-equal to the plain version.
 """
 
 from __future__ import annotations

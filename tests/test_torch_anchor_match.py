@@ -108,3 +108,118 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
     with pytest.raises(ValueError, match="device"):
         am.anchor_match(anchors.to("meta"), torch.rand(1, 2, 4).to("meta"),
                         torch.ones(1, 2, dtype=torch.bool).to("meta"))
+
+
+# ------------------------------------------------ the kernel's tile cull
+#
+# A model of csrc/anchor_match.cu: each tile of `tile` consecutive anchors
+# (128 in the kernel) keeps, in ascending g, only the valid GTs that can
+# overlap its bounding box, and each anchor walks that list with best = 0,
+# best_g = 0 and a strict `>`. Held bit-equal to the plain version on the
+# COCO anchors, with the IoU of each pair from geometry.iou_matrix (which
+# the kernel reproduces bit for bit).
+
+from objectdetection_torch.anchors import config_anchors  # noqa: E402
+from objectdetection_torch.config import COCO_CONFIG  # noqa: E402
+from objectdetection_torch.geometry import iou_matrix  # noqa: E402
+
+
+def tile_boxes(anchors, tile):
+    """[tiles, 4] bounding boxes (min y1, min x1, max y2, max x2) of the
+    tiles, and [tiles] whether a tile holds a NaN coordinate."""
+    a = anchors.shape[0]
+    tiles = -(-a // tile)
+    pad = tiles * tile - a
+    inf = torch.full((pad, 2), float("inf"))
+    lo = torch.cat([anchors[:, :2], inf]).reshape(tiles, tile, 2)
+    hi = torch.cat([anchors[:, 2:], -inf]).reshape(tiles, tile, 2)
+    nan = torch.cat([torch.isnan(anchors).any(1), torch.zeros(pad, dtype=torch.bool)])
+    return torch.cat([lo.amin(1), hi.amax(1)], 1), nan.reshape(tiles, tile).any(1)
+
+
+def tile_cull(anchors, gt, valid, tile):
+    """[B, tiles, G] bool: GT g is on tile t's list. Only comparisons that
+    hold cull (a NaN GT coordinate keeps it); a tile with a NaN anchor
+    coordinate culls nothing."""
+    box, nan = tile_boxes(anchors, tile)
+    box, g = box[None, :, None, :], gt[:, None, :, :]
+    miss = ((g[..., 2] <= box[..., 0]) | (g[..., 0] >= box[..., 2]) |
+            (g[..., 3] <= box[..., 1]) | (g[..., 1] >= box[..., 3]))
+    return valid[:, None, :].to(torch.bool) & ~(miss & ~nan[None, :, None])
+
+
+def tile_walk(anchors, gt, valid, tile):
+    """The kernel's answer from its lists."""
+    a, gn = anchors.shape[0], gt.shape[1]
+    listed = tile_cull(anchors, gt, valid, tile).repeat_interleave(tile, dim=1)[:, :a]
+    iou = iou_matrix(anchors, gt)  # [B, A, G]
+    best = torch.zeros(iou.shape[:2])
+    best_g = torch.zeros(iou.shape[:2], dtype=torch.int32)
+    for j in range(gn):  # ascending g; unlisted GTs are skipped
+        upd = listed[..., j] & (iou[..., j] > best)
+        best = torch.where(upd, iou[..., j], best)
+        best_g = torch.where(upd, j, best_g)
+    seen = torch.where(listed & (iou > 0), iou, torch.zeros(()))
+    gmax = seen.amax(1)
+    first = (seen == gmax[:, None, :]).to(torch.int32).argmax(1)  # the lowest anchor
+    garg = torch.where(gmax > 0, first, torch.zeros_like(first)).to(torch.int32)
+    culled_iou = torch.where(valid[:, None, :].to(torch.bool) & ~listed, iou, torch.zeros(()))
+    return am.AnchorMatch(best, best_g, gmax, garg), listed, culled_iou
+
+
+@pytest.fixture(scope="module")
+def coco_anchors():
+    return torch.from_numpy(config_anchors(COCO_CONFIG))
+
+
+def edge_case(anchors, tile, g=24, seed=7):
+    """GT boxes of realistic sizes on the COCO anchors with every case the
+    cull must keep exact: ties, a GT that is an anchor, invalid rows that
+    hold boxes, zero padding rows, zero-area GTs, and GTs whose edges lie
+    exactly on a tile box's edges."""
+    rng = np.random.RandomState(seed)
+    y1x1 = rng.rand(2, g, 2) * 0.8
+    hw = 0.02 + rng.rand(2, g, 2) ** 2 * 0.5
+    gt = torch.from_numpy(np.concatenate([y1x1, np.minimum(y1x1 + hw, 1.0)], -1)
+                          .astype(np.float32))
+    valid = torch.from_numpy(rng.rand(2, g) > 0.2)
+    box, _ = tile_boxes(anchors, tile)
+    t = box[box.shape[0] // 3]  # a tile of P2
+    gt[:, 1] = gt[:, 0]  # a duplicated GT: anchor argmax ties go low
+    gt[:, 2] = anchors[1000]  # an anchor exactly
+    gt[:, 3] = torch.stack([t[0] - 0.1, t[1], t[0], t[3]])  # ends on the tile's top edge
+    gt[:, 4] = torch.stack([t[2], t[1], t[2] + 0.1, t[3]])  # starts on its bottom edge
+    gt[:, 5] = torch.stack([t[0], t[1] - 0.1, t[2], t[1]])  # ends on its left edge
+    gt[:, 6] = torch.stack([t[0], t[3], t[2], t[3] + 0.1])  # starts on its right edge
+    gt[:, 7] = torch.stack([t[0], t[1], t[0], t[3]])  # zero height, on the tile
+    gt[:, 8] = torch.stack([t[0], t[1], t[2], t[1]])  # zero width, on the tile
+    valid[:, :9] = True
+    valid[:, 9] = False  # an invalid row that holds a box over everything
+    gt[:, 9] = torch.tensor([0.0, 0.0, 1.0, 1.0])
+    valid[:, g - 4:] = False
+    gt[:, g - 4:] = 0.0  # zero padding rows
+    return gt, valid
+
+
+@pytest.mark.parametrize("tile", [32, 128, 256])
+def test_tile_cull_matches_plain_on_coco_anchors(coco_anchors, tile):
+    gt, valid = edge_case(coco_anchors, tile)
+    got, listed, culled_iou = tile_walk(coco_anchors, gt, valid, tile)
+    want = am.anchor_match_plain(coco_anchors, gt, valid)
+    for name, k, w in zip(want._fields, got, want):
+        assert torch.equal(k, w), name
+    assert not culled_iou.any()  # every pair the cull drops has IoU 0
+    a = coco_anchors.shape[0]
+    on_edges = listed[:, :, 3:7].reshape(2, -1, tile, 4)[:, a // 3 // tile]
+    assert not on_edges.any()  # the four GTs on the tile's edges are culled there
+    if tile == 128:  # the kernel's tile; the design's premise: most pairs never reach the IoU loop
+        assert float(listed.float().mean()) < 0.35 * float(valid.float().mean())
+
+
+def test_tile_cull_keeps_everything_beside_a_nan_anchor(coco_anchors):
+    anchors = coco_anchors[:1024].clone()
+    anchors[300, 2] = float("nan")
+    gt, valid = edge_case(anchors, 256, g=12)
+    listed = tile_cull(anchors, gt, valid, 256)
+    assert torch.equal(listed[:, 1], valid)  # the NaN anchor's tile culls nothing
+    assert not torch.equal(listed[:, 0], valid)

@@ -20,7 +20,10 @@ to ``block_affines`` and two kernels launched a call. On boxes outside the
 map (a NaN box, boxes whose table index wraps) the three ROIAlign kernels
 are held the same way, with NaNs in the plain version's places. The ROIAlign
 design probes (P1-P3) are held at small sizes: P1 within
-``patch_dma.tolerance``, P2 and P3 bit-equal.
+``patch_dma.tolerance``, P2 and P3 bit-equal; P2 also at ragged ROI counts
+and with taps outside its patch. Anchor matching is also held at G = 1,
+100, 300 and 2000, with every GT invalid, and twice a shape (its per-GT
+scratch is reused).
 """
 
 import numpy as np
@@ -211,6 +214,59 @@ def test_anchor_match_kernel_matches_plain(cuda):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got.gt_argmax[0, 2]) == 5 and int(got.anchor_argmax[0, 5]) == 2
+
+
+def coco_match_case(g, b, anchors_n, seed, all_invalid=False):
+    """GT boxes of realistic sizes on the COCO anchors (the first anchors_n)
+    with ties, an anchor as a GT, invalid rows holding boxes and zero
+    padding rows."""
+    from objectdetection_torch.anchors import config_anchors
+    from objectdetection_torch.config import COCO_CONFIG
+
+    anchors = torch.from_numpy(config_anchors(COCO_CONFIG))[:anchors_n]
+    rng = np.random.RandomState(seed)
+    y1x1 = rng.rand(b, g, 2) * 0.8
+    hw = 0.02 + rng.rand(b, g, 2) ** 2 * 0.5
+    gt = torch.from_numpy(np.concatenate([y1x1, np.minimum(y1x1 + hw, 1.0)], -1)
+                          .astype(np.float32))
+    valid = torch.from_numpy(rng.rand(b, g) > 0.2)
+    if g >= 4:
+        gt[:, 1] = gt[:, 0]
+        gt[:, 2] = anchors[min(1000, anchors_n - 1)]
+        gt[:, g - 2:] = 0.0
+        valid[:, g - 2:] = False
+    if all_invalid:
+        valid[:] = False
+    return anchors, gt, valid
+
+
+@pytest.mark.parametrize("g,b,anchors_n", [(1, 2, 261888), (100, 2, 261888), (300, 2, 261888),
+                                           (2000, 1, 65536)])
+def test_anchor_match_kernel_at_gt_counts(cuda, g, b, anchors_n):
+    """G = 2000 puts the kernel's GT tables (32 bytes a GT) beyond 48 KB of
+    shared memory; each shape is called twice, so the second call finds the
+    per-GT scratch as the first left it."""
+    for seed in (2, 3):
+        anchors, gt, valid = (t.to(cuda) for t in coco_match_case(g, b, anchors_n, seed))
+        before = anchor_match.launches
+        got = anchor_match.anchor_match(anchors, gt, valid)
+        assert anchor_match.launches == before + 1
+        want = anchor_match.anchor_match_plain(anchors, gt, valid)
+        for name, k, w in zip(want._fields, got, want):
+            assert torch.equal(k, w), name
+        if g > 1:
+            assert bool((got.gt_max > 0).any())
+
+
+def test_anchor_match_kernel_with_every_gt_invalid(cuda):
+    anchors, gt, valid = (t.to(cuda) for t in coco_match_case(100, 2, 261888, 4, True))
+    got = anchor_match.anchor_match(anchors, gt, valid)
+    for t in got:
+        assert not t.any()
+    anchors, gt, valid = (t.to(cuda) for t in coco_match_case(100, 2, 261888, 5))
+    got = anchor_match.anchor_match(anchors, gt, valid)  # the scratch is clean after it
+    for k, w in zip(got, anchor_match.anchor_match_plain(anchors, gt, valid)):
+        assert torch.equal(k, w)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -531,6 +587,29 @@ def test_patch_dma_kernel_matches_plain(cuda):
 @pytest.mark.parametrize("variant", roi_inner.VARIANTS)
 def test_roi_inner_kernel_matches_plain(cuda, variant):
     args = roi_inner.make_inputs(320, cuda)
+    before = roi_inner.launches
+    got = roi_inner.roi_inner(*args, variant)
+    assert roi_inner.launches == before + 1
+    assert torch.equal(got, roi_inner.roi_inner_plain(*args, variant))
+
+
+@pytest.mark.parametrize("variant", roi_inner.VARIANTS)
+@pytest.mark.parametrize("n", [1, 2, 1001, 5003])
+def test_roi_inner_kernel_at_ragged_counts(cuda, variant, n):
+    """n = 1 and counts that are not a multiple of the kernel's walk (132
+    ranges of 4 streams a slice on an H100), with rows where y0 == y1 and
+    taps outside the patch."""
+    xint, wx, geom, patch = roi_inner.make_inputs(5008, cuda)
+    geom = geom.clone()
+    geom[:, 0, 1] = geom[:, 0, 0]  # y0 == y1
+    geom[0::4, 1, 0] = -1.0  # y0 below the patch
+    geom[1::4, 2, 1] = 32.0  # y1 above it
+    geom[2::4, 3, 0], geom[2::4, 3, 1] = 40.7, -3.0  # neither tap
+    args = (xint[:n], wx[:n], geom[:n], patch)
+    if variant == "pair2" and n % 2:
+        with pytest.raises(ValueError, match="even"):
+            roi_inner.roi_inner(*args, variant)
+        return
     before = roi_inner.launches
     got = roi_inner.roi_inner(*args, variant)
     assert roi_inner.launches == before + 1

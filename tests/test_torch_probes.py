@@ -29,6 +29,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from objectdetection_torch.ops import roi_align
 from objectdetection_torch.probes import common, patch_dma, roi_dispatch, roi_inner
 
 torch.set_num_threads(1)
@@ -234,3 +235,96 @@ def test_probe_entry_points_run_the_plain_versions_on_the_cpu(capsys):
     assert "M dma/s" in out and "GB/s" in out
     assert "wide2c" in out and "ms for 16 ROIs" in out and "us/ROI" in out
     assert common.resolve_device("cpu").type == "cpu"
+
+
+# ------------------------------------ P2's split-tap product, as the card runs it
+#
+# csrc/roi_probes.cu runs P2's y-product on bf16 tensor cores split by tap:
+# wy0 holds wy's entry at y0 of each row (where y0 == y1 the single entry),
+# wy1 the entry at y1 where y1 != y0, so D0 = wy0 @ xb and D1 = wy1 @ xb are
+# each one exact bf16 x bf16 product plus exact zeros, and out =
+# bf16(D0 + D1) is one f32 addition. The model below does exactly that and
+# is held bit-equal to the plain version (wy @ xb in f32).
+
+
+def split_taps(geom, py=roi_inner.PY):
+    """wy0, wy1 [k, 7, py] bf16 with wy0 + wy1 == wy and at most one nonzero
+    entry per row each."""
+    wy = roi_inner.wy_rows(geom, py)
+    y0 = roi_align.xla_to_int32(geom[..., 0])[..., None]
+    y1 = roi_align.xla_to_int32(geom[..., 1])[..., None]
+    iota = torch.arange(py)
+    zero = torch.zeros((), dtype=torch.bfloat16)
+    return (torch.where(iota == y0, wy, zero),
+            torch.where((iota == y1) & (y1 != y0), wy, zero))
+
+
+def split_tap_model(xint, wx, geom, patch, variant):
+    n = xint.shape[0]
+    src = patch.float().reshape(1, roi_inner.PY, roi_inner.PX, roi_inner.C).expand(
+        n, -1, -1, -1)
+    q = torch.arange(roi_inner.POOL)
+    x0, x1 = xint[:, 0, :7].long(), xint[:, 0, 7:].long()
+    if variant == "static_x":
+        x0, x1 = (4 * q).expand(n, 7), (4 * q + 1).expand(n, 7)
+    elif variant == "wide2c":
+        x1 = x0 + 1
+    take = lambda x: torch.gather(src, 2, x[:, None, :, None].expand(n, roi_inner.PY, 7,
+                                                                      roi_inner.C))
+    w = wx[:, 0, None, :, None]
+    xb = ((1.0 - w) * take(x0) + w * take(x1)).to(torch.bfloat16)  # [n, 32, 7, C]
+    if variant == "nomatmul":
+        return xb[:, :7].reshape(n, 7, 7 * roi_inner.C)
+    if variant == "noblend":
+        xb = torch.zeros_like(xb)
+    wy0, wy1 = split_taps(geom)
+    assert torch.equal(wy0.float() + wy1.float(), roi_inner.wy_rows(geom, roi_inner.PY).float())
+    assert int((wy0 != 0).sum(-1).max()) <= 1 and int((wy1 != 0).sum(-1).max()) <= 1
+    xb = xb.reshape(n, roi_inner.PY, 7 * roi_inner.C).float()
+    d0, d1 = torch.bmm(wy0.float(), xb), torch.bmm(wy1.float(), xb)
+    out = (d0 + d1).to(torch.bfloat16)
+    if variant == "pair2":
+        out[0::2] = out[1::2]
+    return out
+
+
+def edge_geom(geom):
+    """The draws with rows where y0 == y1 and taps outside 0-31 (below,
+    above, truncated from a negative fraction to 0, NaN to 0)."""
+    geom = geom.clone()
+    geom[:, 0, 1] = geom[:, 0, 0]  # y0 == y1: one entry, bf16((1 - w) + w)
+    geom[0::4, 1, 0] = -1.0  # y0 below the patch: only the y1 tap
+    geom[1::4, 2, 1] = 32.0  # y1 above it: only the y0 tap
+    geom[2::4, 3, 0], geom[2::4, 3, 1] = 40.7, -3.0  # neither tap
+    geom[3::4, 4, 0], geom[3::4, 4, 1] = -0.5, float("nan")  # both convert to 0
+    geom[:, 5, 0], geom[:, 5, 1] = 31.0, 0.0  # the last row and the first
+    return geom
+
+
+@pytest.mark.parametrize("variant", roi_inner.VARIANTS)
+def test_roi_inner_split_tap_model_matches_plain(variant):
+    xint, wx, geom, patch = roi_inner.make_inputs(64, "cpu")
+    for g in (geom, edge_geom(geom)):
+        want = roi_inner.roi_inner_plain(xint, wx, g, patch, variant)
+        assert torch.equal(split_tap_model(xint, wx, g, patch, variant), want)
+        if variant in ("full", "pair2"):
+            assert want.float().abs().sum() > 0
+
+
+def test_per_call_ms_survives_a_lost_record():
+    """The profiler can drop a kernel record; the device time a call keeps
+    the mean of the records it has, times the launches a call makes."""
+    from types import SimpleNamespace
+
+    cuda = torch.autograd.DeviceType.CUDA
+    rec = lambda key, count, us: SimpleNamespace(key=key, device_type=cuda, count=count,
+                                                 self_device_time_total=us)
+    prof = SimpleNamespace(key_averages=lambda: [
+        rec("probe", 4, 4 * 2000.0),  # 5 calls, one record lost
+        rec("pair", 9, 9 * 10.0),  # two launches a call, one record lost
+        rec("fill", 5, 5 * 1.0),
+        SimpleNamespace(key="cpu op", device_type=torch.autograd.DeviceType.CPU, count=5,
+                        self_device_time_total=0.0),
+    ])
+    got = common.per_call_ms(prof, 5)
+    assert got == pytest.approx({"probe": 2.0, "pair": 0.02, "fill": 0.001})
