@@ -61,8 +61,11 @@ and prints no result:
    (ROIs, patch) cases, within n·2^-24·Σ|x| of its plain version; the
    library yardstick is one advanced-index gather of every patch), P2
    ``roi_inner`` (all six variants) and P3 ``roi_dispatch`` (three
-   variants), bit-equal; then each probe's entry point (``main``) runs every
-   case and variant with the launch counters read around it.
+   variants, and 9600 ROIs over the top class and every (level, class)
+   pair), bit-equal, with the P3 probe's own attribution in µs a ROI (bare
+   against P2's wide2c, dispatch − bare, dispatch_small − dispatch); then
+   each probe's entry point (``main``) runs every case and variant with the
+   launch counters read around it.
 
 The line before the last is the kernel table as JSON (launches counted on
 the path that runs each kernel: the training path for the four of phases
@@ -1549,6 +1552,7 @@ def probe_phase(device):
              (roi_dispatch, p3, roi_dispatch.VARIANTS,
               lambda v: roi_dispatch.make_inputs(v, device=device), roi_dispatch.roi_dispatch,
               roi_dispatch.roi_dispatch_plain))
+    times = {}  # (probe, variant): device ms
     for mod, rec, variants, inputs, kernel, plain in cases:
         args = None
         for v in variants:
@@ -1570,6 +1574,7 @@ def probe_phase(device):
                 byt, f32_ops, mm_ops = mod.work(n, v)
             b_ms = byt / PEAK_BYTES * 1e3
             o_ms = (f32_ops / PEAK_F32 + mm_ops / PEAK_BF16) * 1e3
+            times[mod.__name__.rsplit(".", 1)[-1], v] = ms
             rec["ms"] += ms
             rec["plain_ms"] += plain_ms
             rec["bytes_ms"] += b_ms
@@ -1578,6 +1583,26 @@ def probe_phase(device):
                 f"device ({1000 * ms / n:.4f} us/ROI), plain {plain_ms:.1f} ms; bound "
                 f"{max(b_ms, o_ms):.4f} ms (bytes {b_ms:.4f}, operations {o_ms:.4f})")
         del args
+
+    # P3 on ROIs that cycle through the top class and every (level, class)
+    # pair, copies of one class in flight during another's ROI (not in the row)
+    args = roi_dispatch.make_mixed_inputs(9600, device)
+    got = roi_dispatch.roi_dispatch(*args, "dispatch")
+    want = roi_dispatch.roi_dispatch_plain(*args, "dispatch")
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"roi_dispatch mixed: kernel not bit-equal to plain ({int((got != want).sum())} "
+             "values)")
+    ms = device_ms(lambda: roi_dispatch.roi_dispatch(*args, "dispatch"), 5)
+    log(f"roi_dispatch mixed n=9600 (11 kinds): kernel == plain; kernel {ms:.4f} ms device "
+        f"({1000 * ms / 9600:.4f} us/ROI)")
+    del args, got, want
+    # the probe's own attribution (roi_dispatch_probe.py:1-21), us a ROI
+    us = {k: 1000.0 * t / 96000 for k, t in times.items()}
+    log(f"P3 attribution, us/ROI: bare {us['roi_dispatch', 'bare']:.4f} against P2 wide2c "
+        f"{us['roi_inner', 'wide2c']:.4f}; dispatch - bare "
+        f"{us['roi_dispatch', 'dispatch'] - us['roi_dispatch', 'bare']:+.4f}; dispatch_small - "
+        f"dispatch {us['roi_dispatch', 'dispatch_small'] - us['roi_dispatch', 'dispatch']:+.4f}")
 
     # the entry points, as a user runs them, with the counters read around them
     patch_dma.launches = roi_inner.launches = roi_dispatch.launches = 0

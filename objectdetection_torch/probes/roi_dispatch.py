@@ -92,6 +92,43 @@ def make_inputs(variant: str = "dispatch", n: int = 96000, device="cuda"):
             torch.from_numpy(feats.astype(np.int8)).to(dev))
 
 
+def mixed_kinds():
+    """The top class (at the top level) and every (level, class) pair of
+    ``combos()``: 11 kinds."""
+    return [(len(LEVELS) - 1, TOP_CI)] + [(lvl, ci) for lvl, ci, _, _ in combos()]
+
+
+def make_mixed_inputs(n: int = 9600, device="cuda", seed: int = 1, kinds=None):
+    """Inputs of the ``dispatch`` variants whose ROIs cycle through
+    ``kinds``, (level, class) pairs (default ``mixed_kinds()``), each patch
+    inside ``feats``; the taps y0, y1 are drawn from 0-31 whatever the
+    class, so a small class also has taps past its rows. Shapes as
+    ``make_inputs``; n rounded down to a multiple of K."""
+    dev = common.resolve_device(device)
+    n = (n // K) * K
+    rng = np.random.RandomState(seed)
+    kinds = list(kinds or mixed_kinds())
+    kind = np.arange(n) % len(kinds)
+    py = np.array([CLASSES[ci][0] for _, ci in kinds])[kind]
+    meta = np.zeros((n, 1, 8), np.int32)
+    meta[:, 0, 0] = np.arange(n) * IMAGES // n
+    meta[:, 0, 1] = np.array([lvl for lvl, _ in kinds])[kind]
+    meta[:, 0, 2] = np.array([ci for _, ci in kinds])[kind]
+    meta[:, 0, 3] = rng.randint(0, (FEAT_HW - py) // 8 + 1)
+    meta[:, 0, 4] = rng.randint(0, FEAT_HW - py + 1)
+    xint = rng.randint(0, 31, (n, 1, POOL))
+    wx = rng.rand(n, 1, POOL)
+    geom = np.stack([rng.randint(0, 32, (n, POOL)), rng.randint(0, 32, (n, POOL)),
+                     rng.rand(n, POOL), rng.rand(n, POOL)], axis=-1)
+    patch_top = rng.rand(32, 32 * C)
+    feats = rng.randint(-128, 128, (IMAGES, FEAT_HW, FEAT_HW * C))
+    return (torch.from_numpy(meta).to(dev), torch.from_numpy(xint.astype(np.int32)).to(dev),
+            torch.from_numpy(wx.astype(np.float32)).to(dev),
+            torch.from_numpy(geom.astype(np.float32)).to(dev),
+            torch.from_numpy(patch_top.astype(np.float32)).to(torch.bfloat16).to(dev),
+            torch.from_numpy(feats.astype(np.int8)).to(dev))
+
+
 def _check(meta, xint, wx, geom, patch_top, feats, variant):
     if variant not in VARIANTS:
         raise ValueError(f"roi_dispatch: unknown variant {variant!r}")

@@ -21,7 +21,8 @@ map (a NaN box, boxes whose table index wraps) the three ROIAlign kernels
 are held the same way, with NaNs in the plain version's places. The ROIAlign
 design probes (P1-P3) are held at small sizes: P1 within
 ``patch_dma.tolerance``, P2 and P3 bit-equal; P2 also at ragged ROI counts
-and with taps outside its patch. Anchor matching is also held at G = 1,
+and with taps outside its patch; P3 also at ragged ROI counts, on mixed
+classes and on each class's edge taps and columns. Anchor matching is also held at G = 1,
 100, 300 and 2000, with every GT invalid, and twice a shape (its per-GT
 scratch is reused).
 """
@@ -628,3 +629,57 @@ def test_roi_dispatch_kernel_matches_plain(cuda, variant):
     if variant != "bare":
         with pytest.raises(ValueError, match="combos"):
             roi_dispatch.roi_dispatch(meta, *args[1:], variant)
+        meta = args[0].clone()
+        meta[5, 0, 1], meta[5, 0, 2], meta[5, 0, 3] = 1, 1, 15  # rows 120-135 of 128
+        with pytest.raises(ValueError, match="outside its source"):
+            roi_dispatch.roi_dispatch(meta, *args[1:], variant)
+    xint = args[1].clone()
+    xint[7, 0, 4] = 31  # x1 = 32, past the patch
+    with pytest.raises(ValueError, match="outside its source"):
+        roi_dispatch.roi_dispatch(args[0], xint, *args[2:], variant)
+
+
+def dispatch_edge_case(ci, device):
+    """Class ci at level ci (3: the top class) with rows where y0 == y1, taps
+    outside the patch's py rows or past them inside 0-31, NaN and negative
+    taps, and blend columns at and past the class's last column (as the CPU
+    model's edge cases in tests/test_torch_probes.py)."""
+    args = list(roi_dispatch.make_mixed_inputs(64, device, seed=2 + ci, kinds=[(ci, ci)]))
+    py = roi_dispatch.CLASSES[ci][0]
+    geom = args[3].clone()
+    geom[:, 0, 1] = geom[:, 0, 0]
+    geom[0::4, 1, 0] = -1.0
+    geom[1::4, 2, 1] = float(py)
+    geom[2::4, 3, 0], geom[2::4, 3, 1] = py + 8.7, -3.0
+    geom[3::4, 4, 0], geom[3::4, 4, 1] = -0.5, float("nan")
+    geom[:, 5, 0], geom[:, 5, 1] = py - 1.0, 0.0
+    if py < 32:
+        geom[:, 6, 0], geom[:, 6, 1] = py + 2.0, py - 1.0
+    xint = args[1].clone()
+    xint[0::3, 0, 0] = min(py, 30)
+    xint[1::3, 0, 1] = min(py - 1, 30)
+    xint[2::3, 0, 2] = 30
+    args[1], args[3] = xint, geom
+    return tuple(args)
+
+
+@pytest.mark.parametrize("case", [
+    "bare-16", "dispatch-16", "dispatch_small-16", "bare-5008", "dispatch-5008",
+    "dispatch_small-5008", "mixed-16", "mixed-5008", "mixed-9600",
+    "edge-0", "edge-1", "edge-2", "edge-3"])
+def test_roi_dispatch_kernel_at_ragged_counts_and_edges(cuda, case):
+    """ROI counts that do not fill the persistent grid evenly (33 ranges of
+    4 streams a slice on an H100), the mixed classes (every kind of
+    ``mixed_kinds()`` in turn, copies of one class issued during another's
+    ROI), and each class's edge taps and columns."""
+    kind, arg = case.split("-")
+    if kind in roi_dispatch.VARIANTS:
+        args, variant = roi_dispatch.make_inputs(kind, int(arg), cuda), kind
+    elif kind == "mixed":
+        args, variant = roi_dispatch.make_mixed_inputs(int(arg), cuda), "dispatch"
+    else:
+        args, variant = dispatch_edge_case(int(arg), cuda), "dispatch"
+    before = roi_dispatch.launches
+    got = roi_dispatch.roi_dispatch(*args, variant)
+    assert roi_dispatch.launches == before + 1
+    assert torch.equal(got, roi_dispatch.roi_dispatch_plain(*args, variant))

@@ -288,16 +288,19 @@ def split_tap_model(xint, wx, geom, patch, variant):
     return out
 
 
-def edge_geom(geom):
-    """The draws with rows where y0 == y1 and taps outside 0-31 (below,
-    above, truncated from a negative fraction to 0, NaN to 0)."""
+def edge_geom(geom, py=roi_inner.PY):
+    """The draws with rows where y0 == y1 and taps outside the patch's py
+    rows (below, above, truncated from a negative fraction to 0, NaN to 0;
+    for py < 32 also a tap past the patch but inside 0-31)."""
     geom = geom.clone()
     geom[:, 0, 1] = geom[:, 0, 0]  # y0 == y1: one entry, bf16((1 - w) + w)
     geom[0::4, 1, 0] = -1.0  # y0 below the patch: only the y1 tap
-    geom[1::4, 2, 1] = 32.0  # y1 above it: only the y0 tap
-    geom[2::4, 3, 0], geom[2::4, 3, 1] = 40.7, -3.0  # neither tap
+    geom[1::4, 2, 1] = float(py)  # y1 above it: only the y0 tap
+    geom[2::4, 3, 0], geom[2::4, 3, 1] = py + 8.7, -3.0  # neither tap
     geom[3::4, 4, 0], geom[3::4, 4, 1] = -0.5, float("nan")  # both convert to 0
-    geom[:, 5, 0], geom[:, 5, 1] = 31.0, 0.0  # the last row and the first
+    geom[:, 5, 0], geom[:, 5, 1] = py - 1.0, 0.0  # the last row and the first
+    if py < roi_inner.PY:
+        geom[:, 6, 0], geom[:, 6, 1] = py + 2.0, py - 1.0  # y0 past the patch, inside 0-31
     return geom
 
 
@@ -309,6 +312,111 @@ def test_roi_inner_split_tap_model_matches_plain(variant):
         assert torch.equal(split_tap_model(xint, wx, g, patch, variant), want)
         if variant in ("full", "pair2"):
             assert want.float().abs().sum() > 0
+
+
+# ------------------------------------ P3's kernel arithmetic, as the card runs it
+#
+# csrc/roi_probes.cu runs P3 on P2's body: the top class from the resident
+# patch, a small class (py, px) from its int8 patch copied in chunks of 8
+# rows, the codes made f32 through 2^23's mantissa, columns x >= px zero;
+# A fragments over ceil(py/16) k-steps of 16 rows with rows k >= py zero,
+# and split taps masked at k >= py, so D0 and D1 each hold one exact
+# product. The model below does exactly that, chunk by chunk, and is held
+# bit-equal to the plain version.
+
+
+def kernel_codes(codes):
+    """int8 codes as f32 the kernel's way: (code + 128) as the low byte of
+    2^23's bits, minus 2^23 + 128."""
+    u = (codes.to(torch.int32) ^ -128) & 0xFF  # code + 128, as the kernel's byte XOR 0x80
+    return (u | 0x4B000000).view(torch.float32) - 8388736.0
+
+
+def dispatch_split_tap_model(meta, xint, wx, geom, patch_top, feats, variant):
+    n = meta.shape[0]
+    C, POOL = roi_inner.C, roi_inner.POOL
+    b, fh, fwc = feats.shape
+    f4 = feats.reshape(b, fh, fwc // C, C)
+    m = meta[:, 0].long()
+    cls = torch.full((n,), roi_dispatch.TOP_CI) if variant == "bare" else m[:, 2]
+    x0 = xint[:, 0].long()
+    y0 = roi_align.xla_to_int32(geom[..., 0])[..., None]
+    y1 = roi_align.xla_to_int32(geom[..., 1])[..., None]
+    w = geom[..., 2:3]
+    out = torch.full((n, POOL, POOL * C), float("nan"), dtype=torch.bfloat16)
+    for ci, (py, px) in enumerate(roi_dispatch.CLASSES):
+        rows = torch.nonzero(cls == ci).flatten()
+        if rows.numel() == 0:
+            continue
+        k = rows.numel()
+        ks = -(-py // 16)  # k-steps of the product
+        xb = torch.zeros((k, 16 * ks, POOL, C), dtype=torch.bfloat16)  # rows k >= py zero
+        wq = wx[rows, 0][:, None, :, None]
+        for c in range(py // 8):  # the copy chunks, 8 patch rows each
+            if ci == roi_dispatch.TOP_CI:
+                src = patch_top.float().reshape(1, 32, 32, C)[:, 8 * c:8 * c + 8].expand(
+                    k, -1, -1, -1)
+            else:  # the whole [8, px] chunk, then columns past px read zero
+                mm = m[rows]
+                r = 8 * mm[:, 3, None, None] + 8 * c + torch.arange(8)[None, :, None]
+                x = mm[:, 4, None, None] + torch.arange(px)[None, None, :]
+                chunk = kernel_codes(f4[mm[:, 0, None, None], r, x])
+                src = torch.cat([chunk, torch.zeros(k, 8, 32 - px, C)], dim=2)
+            take = lambda xx: torch.gather(src, 2, xx[rows][:, None, :, None].expand(k, 8, POOL, C))
+            xb[:, 8 * c:8 * c + 8] = ((1.0 - wq) * take(x0) + wq * take(x0 + 1)).to(torch.bfloat16)
+        kk = torch.arange(16 * ks)
+        g0, g1, gw = y0[rows], y1[rows], w[rows]
+        zero = torch.zeros(())
+        wy = (torch.where(kk == g0, 1.0 - gw, zero) + torch.where(kk == g1, gw, zero)).to(
+            torch.bfloat16)
+        inside = kk < py
+        tap0 = torch.where(inside & (kk == g0), wy, torch.zeros((), dtype=torch.bfloat16))
+        tap1 = torch.where(inside & (kk == g1) & (g1 != g0), wy,
+                           torch.zeros((), dtype=torch.bfloat16))
+        xf = xb.reshape(k, 16 * ks, POOL * C).float()
+        d0, d1 = torch.bmm(tap0.float(), xf), torch.bmm(tap1.float(), xf)
+        out[rows] = (d0 + d1).to(torch.bfloat16)
+    return out
+
+
+def dispatch_model_case(case):
+    """(inputs, variant) of a model case: a variant of the TPU script's
+    inputs; one (level, class) pair; the mixed run; a class with edge taps
+    and blend columns at and past its last column."""
+    if case in roi_dispatch.VARIANTS:
+        return roi_dispatch.make_inputs(case, 64, "cpu"), case
+    if case == "mixed":
+        return roi_dispatch.make_mixed_inputs(176, "cpu"), "dispatch"
+    kind, ci = case.split("_")
+    ci = int(ci)  # class ci at level ci: class 3, the top class, at the top level
+    args = list(roi_dispatch.make_mixed_inputs(64, "cpu", seed=2 + ci, kinds=[(ci, ci)]))
+    if kind == "edge":
+        py = roi_dispatch.CLASSES[ci][0]
+        args[3] = edge_geom(args[3], py)
+        xint = args[1].clone()
+        xint[0::3, 0, 0] = min(py, 30)  # both columns at or past px: zero for a small class
+        xint[1::3, 0, 1] = min(py - 1, 30)  # x1 = px: the second column zero
+        xint[2::3, 0, 2] = 30  # the last blend the probe allows
+        args[1] = xint
+    return tuple(args), "dispatch"
+
+
+@pytest.mark.parametrize("case", [
+    "bare", "dispatch", "dispatch_small", "class_0", "class_1", "class_2", "mixed",
+    "edge_0", "edge_1", "edge_2", "edge_3"])
+def test_roi_dispatch_split_tap_model_matches_plain(case):
+    args, variant = dispatch_model_case(case)
+    want = roi_dispatch.roi_dispatch_plain(*args, variant)
+    got = dispatch_split_tap_model(*args, variant)
+    assert torch.equal(got, want)
+    assert want.float().abs().sum() > 0
+    if case == "mixed":  # every kind of mixed_kinds(), each inside its source
+        assert {tuple(r) for r in args[0][:, 0, 1:3].tolist()} == set(roi_dispatch.mixed_kinds())
+
+
+def test_kernel_codes_are_exact():
+    codes = torch.arange(-128, 128, dtype=torch.int8)
+    assert torch.equal(kernel_codes(codes), codes.float())
 
 
 def test_per_call_ms_survives_a_lost_record():

@@ -1,0 +1,81 @@
+"""Device time of the port's P3 probe kernel (ROI dispatch) in one checkout.
+
+Times ``probes.roi_dispatch.roi_dispatch`` on each of its three variants at
+the TPU script's size (``make_inputs``: 96000 ROIs from ``RandomState(0)``)
+with torch.profiler, and prints one line of JSON: device ms per call of each
+variant, their sum, a digest of each output, the kernel records the profiler
+saw for each variant (20 for none lost), and the card's name and power
+limit. Run it on two checkouts in turns, in one command, to compare two
+versions of the kernel on one card (ROOT, default this repository, names the
+checkout whose package is imported; both draw the same inputs):
+
+    for r in OLD . . OLD; do python3 tools/torch_roi_dispatch_time.py $r; done
+
+Needs a CUDA card.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+ROOT = sys.argv[1] if len(sys.argv) > 1 else str(HERE)
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+from objectdetection_torch.probes import roi_dispatch  # noqa: E402
+
+REPS = 20
+
+
+def digest(out: torch.Tensor) -> str:
+    """A checksum of the output's bits, computed on the card."""
+    rows = out.view(torch.int16).reshape(-1, 7 * roi_dispatch.C)
+    weights = torch.arange(1, rows.shape[1] + 1, device=out.device, dtype=torch.int64)
+    total = 0
+    for s in range(0, rows.shape[0], 65536):
+        total += int((rows[s:s + 65536].to(torch.int64) * weights).sum())
+    return f"{total & 0xFFFFFFFFFFFF:012x}"
+
+
+def device_ms(fn, reps: int):
+    """Device ms per call of everything ``fn`` launches (torch.profiler), and
+    how many launches of the probe's kernel the profiler recorded."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    seen = sum(e.count for e in events if "roi_dispatch" in e.key)
+    if not total > 0:
+        raise RuntimeError("the profiler saw no device time")
+    return total, seen
+
+
+def main():
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    res, total = {}, 0.0
+    for v in roi_dispatch.VARIANTS:
+        args = roi_dispatch.make_inputs(v, device=dev)
+        out = roi_dispatch.roi_dispatch(*args, v)  # checks the error flag once
+        res[f"{v} digest"] = digest(out)
+        del out
+        ms, seen = device_ms(lambda: roi_dispatch._launch(*args, v), REPS)
+        res[v] = ms
+        res[f"{v} records"] = seen
+        total += ms
+        del args
+    print(json.dumps({"root": ROOT, "card": card, "sum": total, **res}))
+
+
+if __name__ == "__main__":
+    main()
