@@ -65,7 +65,28 @@ and prints no result:
    pair), bit-equal, with the P3 probe's own attribution in µs a ROI (bare
    against P2's wide2c, dispatch − bare, dispatch_small − dispatch); then
    each probe's entry point (``main``) runs every case and variant with the
-   launch counters read around it.
+   launch counters read around it;
+9. the serving entry points at COCO_CONFIG R101 1024² bf16: (a) three
+   seeded images (480×640, 1200×900, 333×500) written as PNG (rows
+   filtered as libpng filters them) and PPM by the port's encoders and
+   decoded back bit-exact, the PNG through the numpy and the C row
+   unfilter (``csrc/png_unfilter.cu``, the server's on the card); molded by
+   ``mold_batch_device`` on the card and on the CPU (within 1e-3), and host
+   against device mold on smooth images (scale within 1e-5, window within
+   1 px, mean interior gap under 6); (b) ``serve`` on 127.0.0.1 with the
+   seeded init weights cast to bf16 once and warmed up: ``/healthz``, the
+   three PNGs in turn and two at once from two threads, each answer equal
+   to ``infer_fn`` + ``unmold_detections`` called directly on the same
+   state dict (integer boxes and class ids identical, scores to 4
+   decimals); (c) ``cli quantize --config coco --calib-images 2
+   --batch-size 1 --percentile 90`` writes an artifact, ``serve(quantized=)``
+   answers the three PNGs identically to the frozen state dict still in
+   memory; (d) ``cli infer`` with masks on one PNG: the ``*_det.png`` it
+   writes decodes at the input's shape, ``paste_detection_masks`` gives
+   [N, H, W] masks; (e) the launch counters around (b)-(d): NMS twice a
+   request, the box-stage ROIAlign once, the mask stage in (d) only. Server
+   latency, client wall, warm-up and peak memory are printed with the
+   card's name and power limit.
 
 The line before the last is the kernel table as JSON (launches counted on
 the path that runs each kernel: the training path for the four of phases
@@ -1619,6 +1640,300 @@ def probe_phase(device):
     return {"patch_dma_probe": p1, "roi_inner_probe": p2, "roi_dispatch_probe": p3}, launches
 
 
+# ---------------------------------------------------------------- phase 9
+
+# phase 9's source images (H, W): a landscape photo size, one larger than the
+# 1024² canvas in both sides, one small and odd
+SERVE_SHAPES = ((480, 640), (1200, 900), (333, 500))
+
+
+def smooth_image(h: int, w: int):
+    """The smooth test image of tests/test_preprocess.py: on it the host and
+    device resamplers agree to the interior gap their test states."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    return np.stack([yy * 2, xx * 1.5, 100 + 50 * np.sin(yy / 9) * np.cos(xx / 11)], -1)
+
+
+def decode_and_mold(device):
+    """9(a): the port's PNG and PPM encoders and decoders bit-exact on three
+    seeded images, the PNG (rows filtered as libpng filters them) through
+    both row unfilters, numpy and the C one; the device mold on the card against the CPU's (within
+    1e-3); host against device mold on smooth images (scale within 1e-5,
+    window within 1 px, mean interior gap under 6)."""
+    import numpy as np
+    import torch
+
+    from objectdetection_torch.config import COCO_CONFIG as cfg
+    from objectdetection_torch.data import image_io
+    from objectdetection_torch.data.preprocess import mold_batch_device, mold_image_host
+
+    rng = np.random.RandomState(9)
+    images = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8) for h, w in SERVE_SHAPES]
+    pngs = []
+    for img in images:
+        # PNG rows filtered as libpng filters them (encode_png's
+        # default): Average and Paeth rows take the row unfilter's slow path
+        png = image_io.encode_png(img)
+        kinds = np.bincount(image_io.png_row_filters(png), minlength=5).tolist()
+        for what, buf, native in (("png, numpy unfilter", png, False),
+                                  ("png, C unfilter", png, True),
+                                  ("ppm", image_io.encode_ppm(img), False)):
+            t0 = time.perf_counter()
+            back = image_io.decode_image(buf, native=native)
+            ms = (time.perf_counter() - t0) * 1e3
+            if back.shape != img.shape or not np.array_equal(back, img):
+                fail(f"serving: {what} decode is not bit-exact at {img.shape}")
+            log(f"serving: {what} {img.shape[0]}x{img.shape[1]}, {len(buf)} bytes"
+                f"{f', rows by filter 0-4 {kinds}' if buf is png else ''}: decoded bit-exact "
+                f"in {ms:.1f} ms (host)")
+        pngs.append(png)
+    hc = max(h for h, _ in SERVE_SHAPES)
+    wc = max(w for _, w in SERVE_SHAPES)
+    shapes = torch.tensor(SERVE_SHAPES, dtype=torch.int32)
+    for name, make in (("random", lambda i, h, w: images[i]),
+                       ("smooth", lambda i, h, w: smooth_image(h, w))):
+        canvas = torch.zeros(len(SERVE_SHAPES), hc, wc, 3)
+        for i, (h, w) in enumerate(SERVE_SHAPES):
+            canvas[i, :h, :w] = torch.from_numpy(np.asarray(make(i, h, w), np.float32))
+        cpu, cmeta = mold_batch_device(canvas, shapes, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev, dmeta = mold_batch_device(canvas.to(device), shapes.to(device), cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        err = float((dev.cpu() - cpu).abs().max())
+        if not (torch.equal(dmeta.window.cpu(), cmeta.window) and err <= 1e-3):
+            fail(f"serving: device mold on the card vs CPU ({name}): windows "
+                 f"{dmeta.window.tolist()} vs {cmeta.window.tolist()}, max |err| {err:.3g}")
+        log(f"serving: device mold ({name}) of {len(SERVE_SHAPES)} canvases {hc}x{wc} → "
+            f"{cfg.image_max_dim}², card vs CPU max |err| {err:.3g} (≤ 1e-3), {ms:.1f} ms")
+        if name != "smooth":
+            continue
+        for i, (h, w) in enumerate(SERVE_SHAPES):
+            hm, hw, hs = mold_image_host(smooth_image(h, w), cfg)
+            dm, dw = dev[i].cpu().numpy(), dmeta.window[i].cpu().numpy()
+            y1, x1, y2, x2 = hw
+            gap = float(np.abs(dm[y1 + 2:y2 - 2, x1 + 2:x2 - 2]
+                               - hm[y1 + 2:y2 - 2, x1 + 2:x2 - 2]).mean())
+            ds = float(dmeta.scale[i])
+            if abs(ds - hs) >= 1e-5 or np.abs(dw - hw).max() > 1.0 or not gap < 6.0:
+                fail(f"serving: host vs device mold at {h}x{w}: scale {hs} / {ds}, window "
+                     f"{hw.tolist()} / {dw.tolist()}, mean interior gap {gap:.3f}")
+            log(f"serving: host vs device mold at {h}x{w}: scale {hs:.6f}, window "
+                f"{hw.tolist()} / {dw.tolist()}, mean interior gap {gap:.3f} (< 6)")
+    return images, pngs
+
+
+def answers(server, image, names):
+    """The detections a server must answer for ``image``: its infer_fn and
+    unmold_detections called directly on its own state dict."""
+    import numpy as np
+    import torch
+
+    from objectdetection_torch.data.preprocess import mold_image_host, unmold_detections
+
+    cfg = server.config
+    molded, window, _ = mold_image_host(image, cfg)
+    det = server.infer_fn(server.variables, molded[None], window[None].astype(np.float32))
+    rows = torch.cat([det.boxes[0], det.class_ids[0][:, None].float(), det.scores[0][:, None]], 1)
+    b, c, s, v = (t.cpu().numpy() for t in unmold_detections(
+        rows, window.astype(np.float32), cfg.image_shape[:2], torch.tensor(image.shape[:2])))
+    if not np.isfinite(s).all():
+        fail("serving: direct call gave non-finite scores")
+    return [{"box_yxyx": [int(x) for x in b[i]], "class_id": int(c[i]),
+             "class_name": names[int(c[i])], "score": round(float(s[i]), 4)}
+            for i in np.where(v)[0]]
+
+
+def drive_server(server, name, images, pngs, card, concurrent: bool):
+    """Requests to a started server: /healthz, each image in turn, and with
+    ``concurrent`` two at once from two threads; every answer against the
+    direct call. Returns (launches, server latency ms, client wall ms)."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from objectdetection_torch.data.coco import COCO_CLASS_NAMES
+
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+        if json.loads(r.read()) != {"status": "ok"}:
+            fail(f"serving ({name}): /healthz")
+
+    def post(body):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"{url}/detect", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = json.loads(r.read())
+        return out, (time.perf_counter() - t0) * 1e3
+
+    reset_launch_counts()
+    got, lat, wall = [], [], []
+    for body in pngs:
+        out, ms = post(body)
+        got.append(out["detections"])
+        lat.append(out["latency_ms"])
+        wall.append(ms)
+    pair = {}
+    if concurrent:
+        go = threading.Barrier(2)
+
+        def client(i):
+            go.wait()
+            try:
+                pair[i] = post(pngs[i])
+            except Exception as exc:  # reported by the check below
+                pair[i] = exc
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for i in range(2):
+            if isinstance(pair[i], Exception):
+                fail(f"serving ({name}): concurrent request {i} failed: {pair[i]!r}")
+    launches = launch_counts()
+    for i, image in enumerate(images):
+        want = answers(server, image, COCO_CLASS_NAMES)
+        if got[i] != want:
+            fail(f"serving ({name}) request {i}: the server's {len(got[i])} detections differ "
+                 f"from the direct call's {len(want)}")
+        if i in pair and pair[i][0]["detections"] != want:
+            fail(f"serving ({name}): concurrent request {i} differs from the direct call")
+    n = [len(g) for g in got]
+    if sum(n) == 0:
+        fail(f"serving ({name}): no request had a detection")
+    for i, (h, w) in enumerate(SERVE_SHAPES):
+        log(f"serving ({name}) request {i} ({h}x{w} PNG): {n[i]} detections == direct call; "
+            f"server latency_ms {lat[i]}, client wall {wall[i]:.1f} ms [{card}]")
+    for i in sorted(pair):
+        log(f"serving ({name}) concurrent request {i}: == direct call; server latency_ms "
+            f"{pair[i][0]['latency_ms']}, client wall {pair[i][1]:.1f} ms [{card}]")
+    return launches, lat, wall
+
+
+def serving_phase(device, card):
+    """9: the serving entry points at COCO_CONFIG R101 1024²: (a) decode and
+    mold; (b) the float server (seeded init weights cast to bf16 once,
+    warmed up) answering /healthz, three requests in turn and two at once,
+    each equal to the direct call on the same cast state dict; (c) the
+    ``quantize`` command's artifact served, equal to the frozen state dict
+    still in memory; (d) ``infer`` with masks on one PNG, its drawing read
+    back and the masks pasted at the image's size; (e) the launch counters
+    around (b)-(d): NMS twice a request, the box-stage ROIAlign once, the
+    mask stage in (d) only."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from objectdetection_torch import cli, serve
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.data.image_io import decode_image
+    from objectdetection_torch.data.masks import paste_detection_masks
+
+    images, pngs = decode_and_mold(device)
+    requests = len(pngs)
+    servers = []
+    try:
+        # (b) the float server
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        server = serve.serve(config=COCO_CONFIG, port=0, block=False)
+        start_s = time.perf_counter() - t0
+        servers.append(server)
+        threading_start(server)
+        dtypes = sorted({str(v.dtype) for v in server.variables.values()})
+        log(f"serving (float): started in {start_s:.2f} s (init, cast to {dtypes}, warm-up "
+            f"{server.warmup_seconds:.2f} s) [{card}]")
+        launches, _, _ = drive_server(server, "float", images, pngs, card, concurrent=True)
+        want = {"nms": 2 * (requests + 2), "roi_align": requests + 2, "roi_align_int8": 0}
+        check_launches("float", launches, want)
+        log(f"serving (float): peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"[{card}]")
+        stop(servers)
+
+        with tempfile.TemporaryDirectory() as tmp:
+            # (c) the int8 artifact, made by the quantize command
+            art = f"{tmp}/int8"
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            frozen = cli.main(["quantize", "--out", art, "--config", "coco", "--calib-images",
+                               "2", "--batch-size", "1", "--percentile", "90"])
+            quant_s = time.perf_counter() - t0
+            server = serve.serve(config=COCO_CONFIG, port=0, block=False, quantized=art)
+            servers.append(server)
+            threading_start(server)
+            same = set(frozen) == set(server.variables) and all(
+                torch.equal(frozen[k], server.variables[k]) for k in frozen)
+            if not same or not server.config.per_channel_acts:
+                fail("serving (int8): the loaded artifact differs from the frozen state dict")
+            log(f"serving (int8): quantize (2 images, batch 1, percentile 90) and save "
+                f"{quant_s:.2f} s; artifact loaded equal to the frozen state dict; warm-up "
+                f"{server.warmup_seconds:.2f} s [{card}]")
+            server.variables = frozen  # the direct calls use the state still in memory
+            launches, _, _ = drive_server(server, "int8", images, pngs, card, concurrent=False)
+            check_launches("int8", launches, {"nms": 2 * requests, "roi_align": 0,
+                                              "roi_align_int8": requests})
+            log(f"serving (int8): peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                f"GiB [{card}]")
+            stop(servers)
+
+            # (d) infer with masks on one PNG
+            path = f"{tmp}/photo.png"
+            with open(path, "wb") as f:
+                f.write(pngs[0])
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            (res,) = cli.main(["infer", path])
+            infer_s = time.perf_counter() - t0
+            check_launches("infer", launch_counts(), {"nms": 2, "roi_align": 2,
+                                                      "roi_align_int8": 0})
+            with open(res["out"], "rb") as f:
+                drawn = decode_image(f.read())
+            if drawn.shape != images[0].shape:
+                fail(f"serving (infer): {res['out']} decodes at {drawn.shape}")
+            n = len(res["boxes"])
+            pasted = paste_detection_masks(res["masks"], res["boxes"], images[0].shape[:2])
+            if pasted.shape != (n, *images[0].shape[:2]) or (n and not pasted.any()):
+                fail(f"serving (infer): pasted masks {pasted.shape}, any {bool(pasted.any())}")
+            if not np.isfinite(res["masks"]).all() or n == 0:
+                fail(f"serving (infer): {n} detections, masks finite "
+                     f"{bool(np.isfinite(res['masks']).all())}")
+            log(f"serving (infer): {n} detections with masks in {infer_s:.2f} s (init, one "
+                f"f32-weight call, drawing, PNG); {res['out'].rsplit('/', 1)[-1]} decodes at "
+                f"{drawn.shape}; pasted masks {pasted.shape}, {int(pasted.sum())} pixels "
+                f"[{card}]")
+    finally:
+        stop(servers)
+
+
+def threading_start(server):
+    import threading
+
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+
+
+def stop(servers):
+    while servers:
+        server = servers.pop()
+        server.shutdown()
+        server.server_close()
+        server.worker.shutdown()
+
+
+def check_launches(name, launches, want):
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"serving ({name}): kernel launches {got}, want {want}")
+    log(f"serving ({name}): launches {got} (NMS twice a request, ROIAlign once a stage)")
+
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1651,6 +1966,7 @@ def main() -> None:
     launches["roi_align_int8"] = served["int8-default"]["launches"]["roi_align_int8"]
     probe_recs, probe_launches = probe_phase(device)
     launches.update(probe_launches)
+    serving_phase(device, card)
 
     kernels = []
     for name, rec, source, replaces in (

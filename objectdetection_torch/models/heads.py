@@ -38,7 +38,7 @@ class Dense(nn.Module):
 class BoxClassHead(nn.Module):
     """Pooled ROIs [B, R, ph, pw, C] → (logits, probs [B, R, K], bbox [B, R, K, 4])."""
 
-    def __init__(self, num_classes: int, pool: int = 7, channels: int = 256,
+    def __init__(self, num_classes: int, pool_shape=(7, 7), channels: int = 256,
                  quant: Optional[Quant] = None):
         super().__init__()
         self.num_classes = num_classes
@@ -46,7 +46,8 @@ class BoxClassHead(nn.Module):
             dense = Dense
         else:
             dense = lambda ci, co: Q.QuantDense(ci, co, quant.per_channel, quant.dtype)
-        self.mrcnn_class_conv1 = dense(pool * pool * channels, 1024)
+        ph, pw = pool_shape
+        self.mrcnn_class_conv1 = dense(ph * pw * channels, 1024)
         self.mrcnn_class_bn1 = FrozenBatchNorm(1024)
         self.mrcnn_class_conv2 = dense(1024, 1024)
         self.mrcnn_class_bn2 = FrozenBatchNorm(1024)
@@ -108,7 +109,7 @@ class MaskHead(nn.Module):
         d = self.mrcnn_mask_deconv
         x = F.relu(F.conv_transpose2d(x, d.weight.to(dtype), d.bias.to(dtype), stride=2))
         x = x.to(torch.float32)
-        kernel = self.mrcnn_mask.weight[:, :, 0, 0]  # [K, C]
+        kernel = self.mrcnn_mask.weight[:, :, 0, 0].to(x.dtype)  # [K, C]
         bias = self.mrcnn_mask.bias
         if class_ids is None:
             logits = torch.einsum("nchw,kc->nhwk", x, kernel) + bias

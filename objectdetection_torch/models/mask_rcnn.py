@@ -68,13 +68,11 @@ class MaskRCNN(nn.Module):
         self.fpn = ResNetFPN(cfg.backbone, c, cfg.image_shape[2], quant_spec(cfg))
         self.rpn_model = RPNHead(cfg.num_anchors_per_location, cfg.rpn_anchor_stride, c,
                                  quant=quant_spec(cfg, cfg.quantize_rpn))
-        self.mrcnn = BoxClassHead(cfg.num_classes, cfg.pool_shape[0], c,
+        self.mrcnn = BoxClassHead(cfg.num_classes, tuple(cfg.pool_shape), c,
                                   quant=quant_spec(cfg, cfg.quantize_box_head))
         # the mask head is 256 wide whatever the FPN's width, as in the flax model
         self.mrcnn_mask = MaskHead(cfg.num_classes, 256, cin=c,
                                    quant=quant_spec(cfg, cfg.quantize_mask_head))
-        if cfg.pool_shape[0] != cfg.pool_shape[1]:
-            raise ValueError("pool_shape must be square")
         if cfg.quantized_inference:
             ph, pw = cfg.pool_shape
             pc = cfg.per_channel_acts

@@ -1,7 +1,9 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` into its own shared library, loaded with ``ctypes``. Nothing here
+Each ``csrc/<name>.cu`` (the kernels of ``KERNEL_SOURCES``, and the host
+code of ``HOST_SOURCES``: the PNG decoder's row unfilter) exposes a plain C
+interface and is compiled by ``nvcc`` into its own shared library, loaded
+with ``ctypes``. Nothing here
 runs at import time: the first wrapper call that needs a kernel builds it
 (``build_all`` builds every source at once, one ``nvcc`` process per source,
 all started together). Libraries go to ``objectdetection_torch/_build/``
@@ -28,6 +30,7 @@ from typing import Dict, List
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 KERNEL_SOURCES = ("anchor_match", "fused_block", "nms", "roi_align", "roi_probes")
+HOST_SOURCES = ("png_unfilter",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -59,7 +62,7 @@ def _lib_path(name: str) -> Path:
 def build_all(names: List[str] | None = None) -> Dict[str, str]:
     """Compile every missing kernel library in parallel; returns the ptxas
     report (registers, shared memory, spills) of each source it compiled."""
-    names = list(names or KERNEL_SOURCES)
+    names = list(names or KERNEL_SOURCES + HOST_SOURCES)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:

@@ -24,7 +24,10 @@ design probes (P1-P3) are held at small sizes: P1 within
 and with taps outside its patch; P3 also at ragged ROI counts, on mixed
 classes and on each class's edge taps and columns. Anchor matching is also held at G = 1,
 100, 300 and 2000, with every GT invalid, and twice a shape (its per-GT
-scratch is reused).
+scratch is reused). The ROIAlign kernel is also held at a non-square
+crop (7×5, 5×7). The serving path's device mold is held within 1e-3 of the
+CPU's with TF32 off, and the server's handler on the card answers two
+concurrent clients as it answers them in turn.
 """
 
 import numpy as np
@@ -181,6 +184,139 @@ def test_roi_align_kernel_crops_and_channels(cuda, crop, channels):
         assert roi_align.int8_launches == before + 1
         want = roi_align.batched_multilevel_roi_align_plain(fs, boxes, image, crop, **kw)
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("crop", [(7, 5), (5, 7)])
+def test_roi_align_kernel_at_a_non_square_crop(cuda, crop):
+    # C3: the box stage at pool_shape (7, 5): f32 bit-equal, bf16 within its
+    # tolerance, the int8 epilogue with a per-position (ph, pw, C) map bit-equal
+    gen = torch.Generator().manual_seed(75)
+    feats = [torch.randn(2, s, s, 256, generator=gen).to(cuda) for s in (64, 32, 16, 8)]
+    y1x1 = torch.rand(2, 200, 2, generator=gen) * 0.8
+    boxes = torch.cat([y1x1, (y1x1 + torch.rand(2, 200, 2, generator=gen)).clamp(max=1)], -1)
+    boxes = boxes.to(cuda)
+    image = (256, 256)
+    before = roi_align.launches
+    got = roi_align.batched_multilevel_roi_align(feats, boxes, image, crop)
+    assert roi_align.launches == before + 1 and tuple(got.shape[2:4]) == crop
+    assert torch.equal(got, roi_align.batched_multilevel_roi_align_plain(feats, boxes, image, crop))
+    bf = [f.to(torch.bfloat16) for f in feats]
+    err = (roi_align.batched_multilevel_roi_align(bf, boxes, image, crop).float()
+           - roi_align.batched_multilevel_roi_align_plain(bf, boxes, image, crop).float())
+    assert float(err.abs().max()) <= roi_align.bf16_tolerance(bf)
+    s_out = (torch.rand(*crop, 256, generator=gen) * 3 + 0.5).to(cuda)
+    got8 = roi_align.batched_multilevel_roi_align(bf, boxes, image, crop, out_quant=s_out)
+    want8 = roi_align.batched_multilevel_roi_align_plain(bf, boxes, image, crop, out_quant=s_out)
+    assert got8.dtype == torch.int8 and torch.equal(got8, want8)
+
+
+def test_device_mold_matches_the_cpu(cuda):
+    # the mold's two products in f32 with TF32 off: within 1e-3 of the CPU's
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.data.preprocess import mold_batch_device
+
+    rng = np.random.RandomState(3)
+    shapes = np.array([[480, 640], [1200, 900], [333, 500]], np.int32)
+    canvases = np.zeros((3, 1200, 1200, 3), np.float32)
+    for i, (h, w) in enumerate(shapes):
+        canvases[i, :h, :w] = rng.randint(0, 256, (h, w, 3))
+    cpu, cmeta = mold_batch_device(torch.from_numpy(canvases), torch.from_numpy(shapes),
+                                   COCO_CONFIG)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True  # the mold turns it off for itself
+    try:
+        dev, dmeta = mold_batch_device(torch.from_numpy(canvases).to(cuda),
+                                       torch.from_numpy(shapes).to(cuda), COCO_CONFIG)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.equal(dmeta.window.cpu(), cmeta.window)
+    assert torch.equal(dmeta.scale.cpu(), cmeta.scale)
+    assert float((dev.cpu() - cpu).abs().max()) <= 1e-3
+
+
+def test_handler_on_the_card_serves_concurrent_requests_as_sequential(cuda):
+    import json
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from objectdetection_torch import serve
+    from objectdetection_torch.config import SHAPES_CONFIG
+    from objectdetection_torch.convert import init_params
+    from objectdetection_torch.data.image_io import encode_png
+    from objectdetection_torch.detector import make_infer_fn
+
+    cfg = SHAPES_CONFIG.replace(image_shape=(64, 64, 3), image_min_dim=64, image_max_dim=64,
+                                pre_nms_rois_count=128, post_nms_rois_inference=32,
+                                detection_min_threshold=0.0)
+    params = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    handler = serve.build_handler(make_infer_fn(cfg, with_masks=False, device=cuda), params,
+                                  cfg, None, native_decode=True)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/detect"
+    rng = np.random.RandomState(4)
+    bodies = [encode_png(rng.randint(0, 256, (48, 80, 3)).astype(np.uint8)) for _ in range(3)]
+
+    def post(body):
+        req = urllib.request.Request(url, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())["detections"]
+
+    try:
+        sequential = [post(b) for b in bodies]
+        assert any(sequential)
+        results, errors, go = {}, [], threading.Barrier(2)
+
+        def client(t):
+            go.wait()
+            for i, b in enumerate(bodies):
+                try:
+                    results[t, i] = post(b)
+                except Exception as exc:  # recorded: the assertion below names it
+                    errors.append(repr(exc))
+
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errors, errors
+        assert all(results[t, i] == sequential[i] for t in range(2) for i in range(3))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4, 6, 8])
+def test_png_c_unfilter_matches_numpy(cuda, bpp):
+    # host code built by nvcc: random filtered bytes, every filter type on
+    # rows in random order, as many bytes a pixel as PNG has
+    from objectdetection_torch.data import image_io
+
+    rng = np.random.RandomState(bpp)
+    h, rowbytes = 67, bpp * 45
+    rows = rng.randint(0, 256, (h, rowbytes + 1)).astype(np.uint8)
+    rows[:, 0] = rng.randint(0, 5, h)
+    rows[:5, 0] = [0, 1, 2, 3, 4]
+    got = image_io.unfilter_native(rows, bpp)
+    np.testing.assert_array_equal(got, image_io.unfilter(rows[:, 1:], rows[:, 0], bpp))
+    rows[40, 0] = 5
+    with pytest.raises(image_io.ImageDecodeError, match="filter type 5"):
+        image_io.unfilter_native(rows, bpp)
+
+
+def test_png_decode_with_the_c_unfilter_is_bit_exact(cuda):
+    from objectdetection_torch.data import image_io
+
+    rng = np.random.RandomState(6)
+    img = rng.randint(0, 256, (300, 410, 3)).astype(np.uint8)
+    for filters in [None, (0,), (1,), (2,), (3,), (4,), (0, 1, 2, 3, 4)]:
+        for im in (img, img[..., 0]):
+            want = im if im.ndim == 3 else np.repeat(im[..., None], 3, -1)
+            buf = image_io.encode_png(im, filters)
+            np.testing.assert_array_equal(image_io.decode_image(buf, native=True), want)
 
 
 def test_roi_align_kernel_raises_without_a_thread_layout(cuda):

@@ -146,6 +146,15 @@ def test_narrow_fpn_matches_jax():
     _check_tight(*_run_both(narrow, fpn_channels=64, detection_min_threshold=0.0))
 
 
+def test_non_square_pool_shape_matches_jax():
+    # C3: the box head's dense is ph·pw·C wide, flattened in (h, w, c) order
+    wide = _weights(pool_shape=(7, 5))
+    jres, jint, tres, tint = _run_both(wide, pool_shape=(7, 5), detection_min_threshold=0.0)
+    assert tuple(tint["roi_pooled"].shape[2:4]) == (7, 5)
+    assert int(np.asarray(jres.valid).sum()) > 0
+    _check(jres, jint, tres, tint)
+
+
 def test_make_infer_fn_cpu_matches_forward(weights):
     _, params = weights
     cfg = T_SHAPES.replace(**SMALL, detection_min_threshold=0.0)

@@ -1,8 +1,11 @@
 """Isolation and device rules of the port.
 
-- The port and ``chip_smoke.py`` import neither JAX, flax nor any module of
-  ``objectdetection_tpu`` (checked in a fresh interpreter, and by a scan of
-  the sources).
+- The port, ``chip_smoke.py`` and ``tools/torch_*.py`` import neither JAX,
+  flax nor any module of ``objectdetection_tpu`` (checked in a fresh
+  interpreter, and by a scan of the sources).
+- No port module imports ``cv2``, ``PIL`` or ``h5py`` at module level (the
+  card's machine has no ``cv2`` and no ``h5py``): the h5 loader and the
+  decoder's Pillow branch import them inside the function that needs them.
 - Entry points default to the card: with no card they raise instead of
   running on the CPU; ``device="cpu"`` runs on the CPU.
 - Unported options raise instead of falling back: the int8 path serves
@@ -58,7 +61,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 @pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(ROOT)) for p in [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"]))
+    str(p.relative_to(ROOT)) for p in [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py",
+                                       *(ROOT / "tools").glob("torch_*.py")]))
 def test_sources_import_nothing_of_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -70,6 +74,55 @@ def test_sources_import_nothing_of_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+OPTIONAL = ("cv2", "PIL", "h5py")
+
+
+def imported_names(node):
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom):
+        return [node.module or ""]
+    return []
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py")))
+def test_no_optional_package_at_module_level(path):
+    tree = ast.parse((ROOT / path).read_text())
+    # module-level statements, also inside a module-level if / try
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.If, ast.Try)):
+            stack += node.body + node.orelse + getattr(node, "finalbody", [])
+            stack += [s for h in getattr(node, "handlers", []) for s in h.body]
+        for name in imported_names(node):
+            assert name.split(".")[0] not in OPTIONAL, f"{path}: imports {name} at module level"
+
+
+def test_serving_modules_import_without_optional_packages():
+    # the server's whole path, in an interpreter where cv2, PIL and h5py fail
+    code = (
+        "import sys\n"
+        f"for m in {OPTIONAL!r}: sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from objectdetection_torch import checkpoint, cli, serve, viz\n"
+        "from objectdetection_torch.data import image_io, masks, preprocess\n"
+        "img = (np.arange(5 * 7 * 3) % 256).astype(np.uint8).reshape(5, 7, 3)\n"
+        "assert (image_io.decode_image(image_io.encode_png(img)) == img).all()\n"
+        "try:\n"
+        "    image_io.decode_image(b'GIF89a')\n"
+        "except image_io.ImageDecodeError as e:\n"
+        "    assert 'Pillow is not installed' in str(e), e\n"
+        "else:\n"
+        "    sys.exit('no error')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_default_device_is_the_card():
