@@ -86,7 +86,25 @@ and prints no result:
    [N, H, W] masks; (e) the launch counters around (b)-(d): NMS twice a
    request, the box-stage ROIAlign once, the mask stage in (d) only. Server
    latency, client wall, warm-up and peak memory are printed with the
-   card's name and power limit.
+   card's name and power limit;
+10. the training and evaluation entry points: (a) ``cli train --steps 20
+   --batch 8 --masks --eval-every 10 --eval-images 16 --eval-masks --ckpt D``
+   at SHAPES_CONFIG (R50 128², bf16): losses finite, the launch counters
+   read around it (NMS and anchor matching once a step, ROIAlign and its
+   gradient twice, plus NMS and ROIAlign twice an evaluation batch), ms a
+   step, the loader's ms a batch on the prefetch thread and the loop's wait
+   for it, peak memory; then ``--resume D --steps 25`` starts at step 20,
+   profiled for the device's busy share; (b) ``cli demo`` writes PNGs that
+   decode at 128×128, and ``cli quantize --config shapes --ckpt D
+   --calib-images 16`` writes an artifact that a server answers on two
+   shapes PNGs identically to the frozen state dict; (c) ``cli train-coco
+   --steps 3 --batch 8`` at COCO_CONFIG (R101 1024², bf16) on a seeded mini
+   COCO of six PNG photos (480×640 to 1200×900, 2-5 boxes each, a crowd
+   region): losses finite, each training kernel once a step (boxes only);
+   (d) ``cli eval-coco`` on it: what it hands the evaluator equals
+   ``make_infer_fn`` + ``unmold_detections_np`` on the same padded batch,
+   NMS twice a batch and ROIAlign once, img/s; (e) int8 bias correction at
+   SHAPES_CONFIG (f32) on 8 images, card against CPU within 1e-4.
 
 The line before the last is the kernel table as JSON (launches counted on
 the path that runs each kernel: the training path for the four of phases
@@ -1934,6 +1952,425 @@ def check_launches(name, launches, want):
 
 
 
+# ---------------------------------------------------------------- phase 10
+
+# 10(c)'s mini COCO: image sizes (H, W), as photos come, and the ones phase 9
+# serves
+COCO_SHAPES = ((480, 640), (1200, 900), (333, 500), (640, 427), (800, 800), (1024, 768))
+SHAPES_STEPS, SHAPES_RESUMED, COCO_STEPS = 20, 25, 3
+
+
+def busy_ms(prof) -> float:
+    import torch
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def profiled_loop(cli, profiles):
+    """``cli._train_loop`` under the profiler, started after the device has
+    finished the command's set-up (init, checkpoint load), so that the
+    profile holds the loop's device work alone (the loop's ``seconds``
+    window)."""
+    import torch
+
+    real = cli._train_loop
+
+    def loop(*args, **kwargs):
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+            out = real(*args, **kwargs)
+        profiles.append(prof)
+        return out
+
+    return loop
+
+
+def after_first_ms(record, steps):
+    """ms a step over the steps after the first, evaluations left out (the
+    loop waits for the device after its first step and before each
+    evaluation)."""
+    return (record["seconds"] - record["first_seconds"] - record["eval_seconds"]) * 1e3 / (
+        steps - 1)
+
+
+def check_train_record(name, record, steps):
+    import numpy as np
+
+    if len(record["metrics"]) != steps:
+        fail(f"{name}: {len(record['metrics'])} steps recorded, want {steps}")
+    for i, m in enumerate(record["metrics"]):
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            fail(f"{name} step {record['first_step'] + i}: not finite: {bad}")
+
+
+def shapes_training(device, card, tmp):
+    """10(a): ``cli train`` at SHAPES_CONFIG (R50 128², bf16), batch 8 with
+    masks, evaluated every 10 steps on 16 held-out images with mask mAP, the
+    checkpoint saved; the launch counters read around it; then ``--resume``
+    to step 25 under the profiler. Returns the checkpoint directory."""
+    import numpy as np
+    import torch
+
+    from objectdetection_torch import cli
+
+    ckpt = f"{tmp}/shapes_ckpt"
+    argv = ["train", "--steps", str(SHAPES_STEPS), "--batch", "8", "--masks", "--eval-every",
+            str(SHAPES_STEPS // 2), "--eval-images", "16", "--eval-masks", "--ckpt", ckpt]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, record = cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_train_record("shapes train", record, SHAPES_STEPS)
+    evals = len(record["evals"])
+    # a step: the proposal layer's NMS, one anchor match, ROIAlign and its
+    # gradient at the box and mask stages; an evaluation batch of 8: NMS
+    # twice (proposals, detections), ROIAlign at both stages
+    eval_batches = evals * 2
+    want = {"nms": SHAPES_STEPS + 2 * eval_batches, "anchor_match": SHAPES_STEPS,
+            "roi_align": 2 * SHAPES_STEPS + 2 * eval_batches,
+            "roi_align_backward": 2 * SHAPES_STEPS}
+    got = {k: launches[k] for k in want}
+    if evals != 2 or got != want or state.step != SHAPES_STEPS:
+        fail(f"shapes train: {evals} evaluations, step {state.step}, launches {got}, want {want}")
+    train_s = record["seconds"] - record["eval_seconds"]
+    log(f"shapes train: `{' '.join(argv[:-1])} D`: {SHAPES_STEPS} steps in {train_s:.2f} s "
+        f"({after_first_ms(record, SHAPES_STEPS):.1f} ms a step after the first, which took "
+        f"{record['first_seconds'] * 1e3:.1f}), 2 evaluations "
+        f"{record['eval_seconds']:.2f} s, command wall {wall:.2f} s; loader "
+        f"{np.mean(record['loader_ms']):.2f} ms a batch of 8 on the prefetch thread (max "
+        f"{np.max(record['loader_ms']):.2f}), the loop waited {np.mean(record['wait_ms'][1:]):.3f}"
+        f" ms a batch after the first ({record['wait_ms'][0]:.1f}); peak memory {peak:.2f} GiB; "
+        f"launches {got} [{card}]")
+    for step, res in record["evals"]:
+        log(f"shapes train: eval after step {step}: box mAP@0.5 {res['mAP']:.4f}, mask mAP@0.5 "
+            f"{res['mask_mAP']:.4f} [{card}]")
+    first, last = record["metrics"][0], record["metrics"][-1]
+    log(f"shapes train: total_loss step 0 {first['total_loss']:.4f}, step {SHAPES_STEPS - 1} "
+        f"{last['total_loss']:.4f}")
+
+    # resumed to step 25, the training loop alone profiled: its busy share
+    profiles = []
+    real = cli._train_loop
+    cli._train_loop = profiled_loop(cli, profiles)
+    try:
+        state, rec = cli.main(["train", "--steps", str(SHAPES_RESUMED), "--batch", "8",
+                               "--masks", "--resume", ckpt, "--log-every", "100"])
+    finally:
+        cli._train_loop = real
+    check_train_record("shapes resume", rec, SHAPES_RESUMED - SHAPES_STEPS)
+    if rec["first_step"] != SHAPES_STEPS or state.step != SHAPES_RESUMED:
+        fail(f"shapes resume: started at {rec['first_step']}, ended at {state.step}")
+    busy = busy_ms(profiles[0])
+    if not busy > 0:
+        fail("shapes resume: the profiler saw no device time")
+    steps = SHAPES_RESUMED - SHAPES_STEPS
+    log(f"shapes train --resume D --steps {SHAPES_RESUMED}: started at step "
+        f"{rec['first_step']}; {steps} profiled steps in {rec['seconds'] * 1e3:.1f} ms "
+        f"({rec['seconds'] * 1e3 / steps:.1f} ms a step; after the first "
+        f"{after_first_ms(rec, steps):.1f}), device busy in the loop {busy:.1f} ms "
+        f"({100 * busy / (rec['seconds'] * 1e3):.1f}% of the loop's wall); loader "
+        f"{np.mean(rec['loader_ms']):.2f} ms a batch [{card}]")
+    return ckpt
+
+
+def demo_and_quantize(device, card, tmp, ckpt):
+    """10(b): ``cli demo`` writes PNGs that decode at 128×128; ``cli quantize
+    --config shapes --ckpt D --calib-images 16`` writes an artifact, which a
+    server answers on two shapes images (detection threshold 0) identically
+    to the frozen state dict in memory."""
+    import urllib.request
+
+    import torch
+
+    from objectdetection_torch import cli, serve
+    from objectdetection_torch.config import SHAPES_CONFIG
+    from objectdetection_torch.data.coco import COCO_CLASS_NAMES
+    from objectdetection_torch.data.image_io import decode_image, encode_png
+    from objectdetection_torch.data.shapes import ShapesDataset
+
+    t0 = time.perf_counter()
+    res = cli.main(["demo", "--out-prefix", f"{tmp}/demo_"])
+    demo_s = time.perf_counter() - t0
+    for r in res:
+        with open(r["out"], "rb") as f:
+            shape = decode_image(f.read()).shape
+        if shape != (128, 128, 3):
+            fail(f"demo: {r['out']} decodes at {shape}")
+    log(f"demo: {len(res)} PNGs decode at 128x128, {[len(r['scores']) for r in res]} "
+        f"detections, {demo_s:.2f} s [{card}]")
+
+    art = f"{tmp}/shapes_int8"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    frozen = cli.main(["quantize", "--out", art, "--config", "shapes", "--ckpt", ckpt,
+                       "--calib-images", "16"])
+    quant_s = time.perf_counter() - t0
+    server = serve.serve(config=SHAPES_CONFIG.replace(detection_min_threshold=0.0), port=0,
+                         block=False, quantized=art)
+    servers = [server]
+    try:
+        threading_start(server)
+        same = set(frozen) == set(server.variables) and all(
+            torch.equal(frozen[k], server.variables[k]) for k in frozen)
+        if not same:
+            fail("shapes quantize: the loaded artifact differs from the frozen state dict")
+        server.variables = frozen
+        url = f"http://127.0.0.1:{server.server_address[1]}/detect"
+        ds = ShapesDataset(2, 128, 128, seed=77)
+        counts = []
+        for i in range(2):
+            image = ds.image(i)
+            req = urllib.request.Request(url, data=encode_png(image), method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                got = json.loads(r.read())["detections"]
+            if got != answers(server, image, COCO_CLASS_NAMES):
+                fail(f"shapes quantize: request {i} differs from the frozen state dict's answer")
+            counts.append(len(got))
+        if not sum(counts):
+            fail("shapes quantize: no detection at threshold 0")
+    finally:
+        stop(servers)
+    log(f"shapes quantize: --ckpt D, 16 shapes images, batch 4, percentile 90: {quant_s:.2f} s; "
+        f"the artifact served 2 shapes PNGs with {counts} detections == the frozen state dict "
+        f"[{card}]")
+
+
+def write_mini_coco(root):
+    """10(c): six seeded PNG photos of COCO_SHAPES with 2-5 boxes each (one
+    image also a crowd region), in the instances_*.json layout."""
+    import numpy as np
+
+    from objectdetection_torch.data.image_io import encode_png
+
+    rng = np.random.RandomState(10)
+    images, anns = [], []
+    for i, (h, w) in enumerate(COCO_SHAPES):
+        img = smooth_image(h, w)
+        boxes = []
+        for _ in range(rng.randint(2, 6)):
+            bh, bw = rng.uniform(0.1, 0.5) * h, rng.uniform(0.1, 0.5) * w
+            y, x = rng.uniform(0, h - bh), rng.uniform(0, w - bw)
+            img[int(y):int(y + bh), int(x):int(x + bw)] = rng.randint(0, 256, 3)
+            boxes.append([x, y, bw, bh])
+        with open(f"{root}/{i}.png", "wb") as f:
+            f.write(encode_png(np.clip(img, 0, 255).astype(np.uint8)))
+        images.append(dict(id=i + 1, file_name=f"{i}.png", height=h, width=w))
+        for b in boxes:
+            anns.append(dict(id=len(anns) + 1, image_id=i + 1, iscrowd=0,
+                             category_id=int(rng.choice([1, 3, 18, 62])), bbox=b))
+    anns.append(dict(id=len(anns) + 1, image_id=2, iscrowd=1, category_id=1,
+                     bbox=[10.0, 10.0, 300.0, 200.0]))
+    cats = [dict(id=c, name=n) for c, n in ((1, "person"), (3, "car"), (18, "dog"),
+                                            (62, "chair"))]
+    path = f"{root}/instances.json"
+    with open(path, "w") as f:
+        json.dump(dict(images=images, annotations=anns, categories=cats), f)
+    return path, sum(not a["iscrowd"] for a in anns)
+
+
+def repeat_coco(path, times):
+    """The annotation file ``path`` with its images listed ``times`` times
+    (new ids, the same files and boxes): an evaluation of several full
+    batches from the same photos."""
+    with open(path) as f:
+        data = json.load(f)
+    n = max(im["id"] for im in data["images"])
+    images = [dict(im, id=im["id"] + k * n) for k in range(times) for im in data["images"]]
+    anns = [dict(a, id=i + 1, image_id=a["image_id"] + k * n)
+            for i, (k, a) in enumerate((k, a) for k in range(times)
+                                       for a in data["annotations"])]
+    out = path.replace(".json", f"_x{times}.json")
+    with open(out, "w") as f:
+        json.dump(dict(data, images=images, annotations=anns), f)
+    return out, len(images)
+
+
+def coco_training(device, card, ann, img_dir):
+    """10(c): ``cli train-coco --steps 3 --batch 8 --ckpt C`` at COCO_CONFIG
+    (R101 1024², bf16), boxes only; the launch counters read around it."""
+    import numpy as np
+    import torch
+
+    from objectdetection_torch import cli
+
+    ckpt = f"{img_dir}/coco_ckpt"
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, record = cli.main(["train-coco", ann, img_dir, "--steps", str(COCO_STEPS), "--batch",
+                              "8", "--ckpt", ckpt, "--log-every", "1"])
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_train_record("coco train", record, COCO_STEPS)
+    want = {"nms": COCO_STEPS, "anchor_match": COCO_STEPS, "roi_align": COCO_STEPS,
+            "roi_align_backward": COCO_STEPS}
+    got = {k: launches[k] for k in want}
+    if got != want or state.step != COCO_STEPS:
+        fail(f"coco train: step {state.step}, launches {got}, want {want}")
+    log(f"coco train: `train-coco --steps {COCO_STEPS} --batch 8` (R101 1024² bf16, boxes "
+        f"only): {after_first_ms(record, COCO_STEPS):.1f} ms a step after the first, which "
+        f"took {record['first_seconds'] * 1e3:.1f}; command wall {wall:.2f} s; loader "
+        f"{np.mean(record['loader_ms']):.1f} ms a batch of 8 (decode + host mold), the loop "
+        f"waited {np.mean(record['wait_ms'][1:]):.1f} ms a batch after the first "
+        f"({record['wait_ms'][0]:.1f}); "
+        f"peak memory {peak:.2f} GiB; launches {got}; total_loss "
+        f"{[round(m['total_loss'], 4) for m in record['metrics']]} [{card}]")
+
+
+def coco_evaluation(device, card, ann, img_dir):
+    """10(d): ``cli eval-coco`` on the mini COCO: what it hands the evaluator
+    equals ``make_infer_fn`` + ``unmold_detections_np`` called directly on
+    the same padded batch (integer boxes and class ids identical, scores to
+    4 decimals); NMS twice a batch, the box-stage ROIAlign once. Then warm:
+    ``eval-coco`` again on the six photos listed four times (three full
+    batches of 8), for its images per second."""
+    import numpy as np
+    import torch
+
+    from objectdetection_torch import cli, coco_eval, detector
+    from objectdetection_torch.config import COCO_CONFIG as cfg
+    from objectdetection_torch.convert import init_params
+    from objectdetection_torch.data.coco import CocoDataset, eval_batch
+    from objectdetection_torch.data.preprocess import unmold_detections_np
+
+    rows = []
+    base = coco_eval.DetectionEvaluator
+
+    class Recording(base):
+        def add_image(self, pred_boxes, pred_classes, pred_scores, *a, **kw):
+            rows.append((np.asarray(pred_boxes), np.asarray(pred_classes),
+                         np.asarray(pred_scores)))
+            return super().add_image(pred_boxes, pred_classes, pred_scores, *a, **kw)
+
+    coco_eval.DetectionEvaluator = Recording
+    try:
+        reset_launch_counts()
+        results, ips = cli.main(["eval-coco", ann, img_dir])
+        launches = launch_counts()
+    finally:
+        coco_eval.DetectionEvaluator = base
+    want = {"nms": 2, "roi_align": 1, "roi_align_backward": 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"coco eval: launches {got}, want {want} (one padded batch of 8)")
+    ds = CocoDataset(ann, img_dir, native_decode=device.type == "cuda")
+    images, windows, shapes = eval_batch(ds, ds.image_ids, cfg)
+    pad = 8 - len(ds.image_ids)
+    images = np.pad(images, ((0, pad), (0, 0), (0, 0), (0, 0)))
+    windows = np.pad(windows, ((0, pad), (0, 0)), constant_values=1)
+    shapes = np.pad(shapes, ((0, pad), (0, 0)), constant_values=1)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    det = detector.make_infer_fn(cfg, with_masks=False)(params, images, windows)
+    boxes, cls = det.boxes.float().cpu().numpy(), det.class_ids.cpu().numpy()
+    scores = det.scores.float().cpu().numpy()
+    counts = []
+    for i in range(len(ds.image_ids)):
+        row = np.concatenate([boxes[i], cls[i][:, None].astype(np.float32), scores[i][:, None]],
+                             1)
+        b, c, s, v = unmold_detections_np(row, windows[i], cfg.image_shape[:2], shapes[i])
+        gb, gc, gs = rows[i]
+        if not (np.array_equal(gb, b[v]) and np.array_equal(gc, c[v])
+                and np.array_equal(np.round(gs, 4), np.round(s[v], 4))):
+            fail(f"coco eval: image {i}: the evaluator got {len(gb)} detections, the direct "
+                 f"call gives {int(v.sum())}, or they differ")
+        counts.append(len(gb))
+    if not sum(counts) or not np.isfinite(results["mAP"]) or len(rows) != len(counts):
+        fail(f"coco eval: detections {counts}, mAP {results['mAP']}")
+    log(f"coco eval: `eval-coco` on {len(counts)} images (one batch of 8, padded): detections "
+        f"{counts} == make_infer_fn + unmold_detections_np; mAP {results['mAP']:.4f}; "
+        f"{ips:.2f} img/s of inference (cold: the first call at batch 8); launches {got} "
+        f"[{card}]")
+    ann4, n4 = repeat_coco(ann, 4)
+    first = list(rows)
+    rows.clear()
+    coco_eval.DetectionEvaluator = Recording
+    try:
+        reset_launch_counts()
+        results4, ips4 = cli.main(["eval-coco", ann4, img_dir])
+        launches = launch_counts()
+    finally:
+        coco_eval.DetectionEvaluator = base
+    want = {"nms": 2 * n4 // 8, "roi_align": n4 // 8, "roi_align_backward": 0}
+    got = {k: launches[k] for k in want}
+    same = len(rows) == n4 and all(
+        np.array_equal(r[0], f[0]) and np.array_equal(r[1], f[1])
+        and np.array_equal(np.round(r[2], 4), np.round(f[2], 4))
+        for r, f in zip(rows, first * 4))
+    if got != want or not same or not np.isfinite(results4["mAP"]):
+        fail(f"coco eval warm: launches {got}, want {want}; {len(rows)} images, each the same "
+             f"detections as in the first call: {same}; mAP {results4['mAP']}")
+    log(f"coco eval: warm `eval-coco` on {n4} images (the six listed 4 times, {n4 // 8} full "
+        f"batches of 8, each image's detections those of the first call): {ips4:.2f} img/s "
+        f"of inference; launches {got} [{card}]")
+
+
+def bias_correction(device, card):
+    """10(e): int8 bias correction at SHAPES_CONFIG (f32 compute: cuDNN's and
+    the CPU's bf16 convs round differently) on 8 shapes images: calibrated
+    on the card, then the input means recorded and the biases corrected on
+    the card and on the CPU from the same calibrated state; the corrected
+    biases agree within 1e-4 of each bias tensor's largest magnitude."""
+    import torch
+
+    from objectdetection_torch import cli, quant
+    from objectdetection_torch.config import SHAPES_CONFIG
+    from objectdetection_torch.convert import init_params
+    from objectdetection_torch.data.shapes import ShapesDataset
+
+    cfg = cli.quantize_config(SHAPES_CONFIG.replace(compute_dtype="float32"))
+    images = ShapesDataset(8, 128, 128, seed=5).load_batch(list(range(8)), cfg).images
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    cal = quant.calibrate_variables(params, images, cfg, batch_size=4, percentile=90.0)
+    frozen = quant.freeze_weights(cal)
+    means = quant.record_act_means(cal, images, cfg, batch_size=4)
+    card_out = quant.apply_bias_correction(frozen, cal, means)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = lambda sd: {k: v.cpu() for k, v in sd.items()}
+    t0 = time.perf_counter()
+    cpu_means = quant.record_act_means(cpu(cal), images, cfg, batch_size=4, device="cpu")
+    cpu_out = quant.apply_bias_correction(cpu(frozen), cpu(cal), cpu_means)
+    cpu_s = time.perf_counter() - t0
+    worst, moved = 0.0, 0
+    for k, v in cpu_out.items():
+        if not k.endswith(".bias") or f"{k[:-4]}kernel_scale" not in cpu_out:
+            if not torch.equal(card_out[k].cpu(), v):
+                fail(f"bias correction: {k} differs between the card and the CPU")
+            continue
+        err = float((card_out[k].cpu() - v).abs().max()) / (float(v.abs().max()) + 1e-30)
+        worst = max(worst, err)
+        moved += int(not torch.equal(v, frozen[k].cpu()))
+    if not worst <= 1e-4 or moved < 50:
+        fail(f"bias correction: card vs CPU {worst:.3g} of the largest bias, {moved} corrected")
+    log(f"bias correction (SHAPES_CONFIG f32, 8 images, 2 chunks): {len(means)} input means, "
+        f"{moved} biases corrected; card vs CPU within {worst:.3g} of each bias's largest "
+        f"(<= 1e-4); card {card_s:.2f} s (calibrate, freeze, means, correct), CPU {cpu_s:.2f} s "
+        f"(means, correct) [{card}]")
+
+
+def training_phase(device, card):
+    """10: the training and evaluation entry points (a)-(e)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = shapes_training(device, card, tmp)
+        demo_and_quantize(device, card, tmp, ckpt)
+        ann, n_boxes = write_mini_coco(tmp)
+        log(f"mini COCO: {len(COCO_SHAPES)} PNGs {COCO_SHAPES}, {n_boxes} boxes and 1 crowd "
+            "region")
+        coco_training(device, card, ann, tmp)
+        coco_evaluation(device, card, ann, tmp)
+    bias_correction(device, card)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1967,6 +2404,7 @@ def main() -> None:
     probe_recs, probe_launches = probe_phase(device)
     launches.update(probe_launches)
     serving_phase(device, card)
+    training_phase(device, card)
 
     kernels = []
     for name, rec, source, replaces in (

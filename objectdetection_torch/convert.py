@@ -20,7 +20,12 @@ res2a_branch2a``); leaves are renamed and relaid:
   ``pooled_box_scale``, ``pooled_mask_scale``) becomes buffers at the same
   module paths, unchanged (the per-position scales of ``mrcnn_class_conv1``
   and ``pooled_box_scale`` keep flax's (ph, pw, C) order, as the port
-  flattens); a frozen int8 kernel is relaid like a float one and stays int8.
+  flattens); a frozen int8 kernel is relaid like a float one and stays int8;
+- the ``stats`` collection of int8 bias correction (JAX's
+  ``record_act_means``) becomes ``<module path>.act_mean`` entries, the
+  ``means`` of :func:`~objectdetection_torch.quant.apply_bias_correction`
+  (no tensor of the network's state dict); flax's ``sow`` leaves a tuple of
+  values per module, of which the last counts, as JAX's correction reads it.
 
 :func:`init_params` draws a fresh state dict from a ``torch.Generator`` with
 the same initializer families as the flax modules (``he_normal`` for the
@@ -47,7 +52,7 @@ import torch
 from objectdetection_torch.config import DetectorConfig
 from objectdetection_torch.quant import QUANT_LEAVES
 
-_COLLECTIONS = ("params", "batch_stats", "quant")
+_COLLECTIONS = ("params", "batch_stats", "quant", "stats")
 _BATCH_STATS = ("mean", "var")  # FrozenBatchNorm leaves of the batch_stats collection
 # flax's truncated_normal variance_scaling divides the stddev by the std of
 # a unit normal truncated to [-2, 2]
@@ -79,16 +84,14 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     int8 for frozen kernels)."""
     extra = set(variables) - set(_COLLECTIONS)
     if extra:
-        raise NotImplementedError(
-            f"collections {sorted(extra)} are not ported: the 'stats' means of int8 bias "
-            "correction are ROADMAP item A11's remainder (record_act_means / "
-            "apply_bias_correction)"
-        )
+        raise NotImplementedError(f"collections {sorted(extra)} are not ported")
     out: Dict[str, torch.Tensor] = {}
     for coll in _COLLECTIONS:
         for path, arr in _walk(variables.get(coll, {})):
             leaf = "weight" if path[-1] == "kernel" else path[-1]
             name = ".".join(path[:-1] + (leaf,))
+            if isinstance(arr, (tuple, list)):  # a sown value: the last call's
+                arr = arr[-1]
             arr = np.asarray(arr)
             arr = arr if arr.dtype == np.int8 else arr.astype(np.float32)
             out[name] = torch.from_numpy(np.array(_relayout(path, arr), order="C"))

@@ -1,5 +1,6 @@
-"""Data of the serving path: image decoding, molding and unmolding, masks,
-and the COCO class names."""
+"""Data of the port: image decoding, molding and unmolding, masks, the
+synthetic shapes dataset and its rasterizer, the COCO reader, and the
+batch prefetcher."""
 
 from objectdetection_torch.data.preprocess import (  # noqa: F401
     ImageMeta,

@@ -220,6 +220,7 @@ class ResNetBottomUp(nn.Module):
                                int8_compute=quant is not None and quant.int8_stem)
         self.bn_conv1 = FrozenBatchNorm(64)
         if quant is not None:
+            self.conv1.sows_mean = False
             self.register_buffer("c1_out_scale",
                                  torch.zeros(64) if quant.per_channel else torch.zeros(()))
         self.stages: List[List[str]] = []

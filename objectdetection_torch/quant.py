@@ -30,7 +30,11 @@ the port's layouts (conv OIHW, dense [out, in]).
 
 Calibration is a mode: inside ``with calibration():`` every quantized module
 runs the float forward and raises its recorded absmax in place, in the
-tensors it was called with (flax's ``mutable=["quant"]``). Every division
+tensors it was called with (flax's ``mutable=["quant"]``). Inside
+``with recording_means(store):`` as well, every QuantConv and QuantDense
+also leaves the per-channel mean of its input in ``store`` (flax's
+``mutable=["stats"]`` and ``sow``), which :func:`record_act_means` collects
+for the bias correction of :func:`apply_bias_correction`. Every division
 below divides by a tensor on the operand's device: CUDA turns division by a
 host scalar into multiplication by its reciprocal, which rounds differently
 from the JAX reference.
@@ -58,6 +62,7 @@ ACT_SCALES = ("act_scale", "out_scale", "c1_out_scale", "shared_scale",
 QUANT_LEAVES = ACT_SCALES + ("kernel_scale",)
 
 _calibrating = False
+_means: Optional[Dict] = None  # module -> input mean, while recording_means is active
 
 
 @contextlib.contextmanager
@@ -73,6 +78,19 @@ def calibration() -> Iterator[None]:
 
 def calibrating() -> bool:
     return _calibrating
+
+
+@contextlib.contextmanager
+def recording_means(store: Dict) -> Iterator[Dict]:
+    """While calibrating, also record each QuantConv / QuantDense input's
+    per-channel mean into ``store`` (keyed by module; a module called more
+    than once, as the RPN head is per level, keeps its last call's)."""
+    global _means
+    prev, _means = _means, store
+    try:
+        yield store
+    finally:
+        _means = prev
 
 
 def _c(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -201,15 +219,16 @@ def quantize_nchw(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return quantize_act(nhwc(x), scale).contiguous()
 
 
-def _record(buf: torch.Tensor, x: torch.Tensor, channel_dim: int) -> None:
-    """buf ← max(buf, absmax of x), per channel when buf is a vector."""
+def _record(buf: torch.Tensor, x: torch.Tensor, channel_dim: int, owner=None) -> None:
+    """buf ← max(buf, absmax of x), per channel when buf is a vector; and,
+    under :func:`recording_means`, the mean of x over every axis but the
+    channel axis as ``owner``'s input mean."""
     a = x.to(torch.float32).abs()
-    if buf.dim():
-        dims = tuple(d for d in range(x.dim()) if d != channel_dim % x.dim())
-        upd = a.amax(dim=dims)
-    else:
-        upd = a.amax()
+    dims = tuple(d for d in range(x.dim()) if d != channel_dim % x.dim())
+    upd = a.amax(dim=dims) if buf.dim() else a.amax()
     buf.copy_(torch.maximum(buf, upd))
+    if owner is not None and _means is not None:
+        _means[owner] = x.to(torch.float32).mean(dim=dims)
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +262,11 @@ class QuantConv(_QuantLayer):
     (scalar, or [in] with ``per_channel``). ``int8_compute=False`` serves in
     the compute dtype with the dequantized int8 kernel (the bf16 stem and
     ``bf16_stages``). Padding: flax ``"SAME"`` by default, or explicit.
+    ``sows_mean=False`` records no input mean for bias correction (the
+    ResNet stem: JAX's ``Stage1Conv`` sows none).
     """
+
+    sows_mean = True
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding=None,
                  per_channel: bool = False, int8_compute: bool = True,
@@ -276,7 +299,7 @@ class QuantConv(_QuantLayer):
         if calibrating():
             if self.weight.dtype == torch.int8:
                 raise RuntimeError("calibrate before quant.freeze_weights, not after")
-            _record(self.act_scale, x, 1)
+            _record(self.act_scale, x, 1, owner=self if self.sows_mean else None)
             return self._conv_float(x.to(dt), self.weight.to(dt))
         if not self.int8_compute:
             if return_x8:
@@ -321,7 +344,7 @@ class QuantDense(_QuantLayer):
         if calibrating():
             if self.weight.dtype == torch.int8:
                 raise RuntimeError("calibrate before quant.freeze_weights, not after")
-            _record(self.act_scale, x, -1)
+            _record(self.act_scale, x, -1, owner=self)
             return torch.matmul(x.to(dt), self.weight.to(dt).t()) + self.bias.to(dt)
         act = self.act_scale
         if in_scale is not None:
@@ -372,6 +395,27 @@ def quant_keys(state_dict: Mapping[str, torch.Tensor]):
     return [k for k in state_dict if k.rsplit(".", 1)[-1] in QUANT_LEAVES]
 
 
+def _float_pipeline(model, chunk, anchors, config) -> None:
+    """The calibration forward: extract → proposals → box head → mask head
+    on the top ``detection_post_nms_instances`` proposals."""
+    from objectdetection_torch.layers.proposals import proposal_layer
+
+    feats, _, probs, deltas = model.extract(chunk)
+    props = proposal_layer(probs, deltas, anchors, config, training=False)
+    model.classify_rois(feats, props)
+    model.predict_masks(feats, props[:, : config.detection_post_nms_instances])
+
+
+def _chunks(images: torch.Tensor, b: int) -> Iterator[torch.Tensor]:
+    """Chunks of ``b`` images; a ragged tail is padded by repeating images
+    (shapes stay fixed)."""
+    for i in range(0, images.shape[0], b):
+        chunk = images[i: i + b]
+        if chunk.shape[0] != b:
+            chunk = torch.cat([chunk, chunk[: b - chunk.shape[0]]], 0)
+        yield chunk
+
+
 def calibrate_variables(
     params: Mapping[str, torch.Tensor],
     images,
@@ -398,7 +442,6 @@ def calibrate_variables(
     from objectdetection_torch import detector
     from objectdetection_torch.anchors import config_anchors
     from objectdetection_torch.convert import resolve_device
-    from objectdetection_torch.layers.proposals import proposal_layer
 
     if not config.quantized_inference:
         raise ValueError("calibrate_variables needs a quantized_inference config")
@@ -410,34 +453,21 @@ def calibrate_variables(
     b = batch_size or images.shape[0]
     keys = quant_keys(params)
 
-    def run(fn_model, chunk):
-        feats, _, probs, deltas = fn_model.extract(chunk)
-        props = proposal_layer(probs, deltas, anchors, config, training=False)
-        fn_model.classify_rois(feats, props)
-        fn_model.predict_masks(feats, props[:, : config.detection_post_nms_instances])
-
     def step(quant, chunk):
         state = {**params, **quant}
         with torch.no_grad(), calibration():
-            functional_call(model, state, (run, chunk), strict=True)
+            functional_call(model, state, (_float_pipeline, chunk, anchors, config), strict=True)
         return quant
-
-    def chunks():
-        for i in range(0, images.shape[0], b):
-            chunk = images[i: i + b]
-            if chunk.shape[0] != b:  # pad the ragged tail: shapes stay fixed
-                chunk = torch.cat([chunk, chunk[: b - chunk.shape[0]]], 0)
-            yield chunk
 
     out = dict(params)
     if percentile is None:
         quant = {k: params[k].clone() for k in keys}
-        for chunk in chunks():
+        for chunk in _chunks(images, b):
             quant = step(quant, chunk)
         out.update(quant)
         return out
     per_chunk = []
-    for chunk in chunks():
+    for chunk in _chunks(images, b):
         quant = {k: params[k].clone() if k.endswith(".kernel_scale")
                  else torch.zeros_like(params[k]) for k in keys}
         per_chunk.append(step(quant, chunk))
@@ -448,4 +478,91 @@ def calibrate_variables(
     for k in keys:
         stacked = torch.stack([c[k] for c in per_chunk]).to(torch.float32)
         out[k] = torch.quantile(stacked, q, dim=0, interpolation="linear")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Bias correction
+
+
+def record_act_means(
+    params: Mapping[str, torch.Tensor],
+    images,
+    config,
+    batch_size: Optional[int] = None,
+    device="cuda",
+) -> Dict[str, torch.Tensor]:
+    """Per-input-channel means of every QuantConv / QuantDense input on the
+    float forward, for :func:`apply_bias_correction`.
+
+    Runs :func:`calibrate_variables`' pipeline in chunks of ``batch_size``
+    (the ragged tail padded by repeating images) on the float state dict
+    ``params`` of a ``quantized_inference`` config (after calibration,
+    before freezing); ``params`` is not modified. Returns ``{"<module
+    path>.act_mean": [C_in] f32}``, the mean of the chunks' means (the
+    flax ``stats`` collection through ``convert.flax_to_state_dict``).
+    """
+    from torch.func import functional_call
+
+    from objectdetection_torch import detector
+    from objectdetection_torch.anchors import config_anchors
+    from objectdetection_torch.convert import resolve_device
+
+    if not config.quantized_inference:
+        raise ValueError("record_act_means needs a quantized_inference config")
+    dev = resolve_device(device)
+    images = torch.as_tensor(images, dtype=torch.float32, device=dev)
+    model = detector._bound_model(config)
+    detector.check_state(params, config)
+    anchors = torch.from_numpy(config_anchors(config)).to(dev)
+    names = {m: n for n, m in model.named_modules()}
+    keys = quant_keys(params)
+    per_chunk = []
+    for chunk in _chunks(images, batch_size or images.shape[0]):
+        state = {**params, **{k: params[k].clone() for k in keys}}  # scales move, params stay
+        with torch.no_grad(), calibration(), recording_means({}) as store:
+            functional_call(model, state, (_float_pipeline, chunk, anchors, config), strict=True)
+        per_chunk.append({f"{names[m]}.act_mean": v for m, v in store.items()})
+    return {k: torch.stack([c[k] for c in per_chunk]).mean(0) for k in per_chunk[0]}
+
+
+def apply_bias_correction(
+    frozen: Mapping[str, torch.Tensor],
+    calibrated: Mapping[str, torch.Tensor],
+    means: Mapping[str, torch.Tensor],
+) -> Dict[str, torch.Tensor]:
+    """Fold the expected weight-quantization error into the biases.
+
+    PTQ bias correction (Nagel et al., "Data-Free Quantization", 2019): the
+    int8 path realizes the kernel r = k8 · s_w, which differs from the
+    calibrated float kernel (with the per-channel act fold, k · act/127) by
+    Δ; its expected output offset Δ · E[x] (E[x8] = E[x] · 127/act per
+    channel) is a constant per output channel, subtracted from the bias at
+    no serving cost.
+
+    frozen: the state dict after :func:`freeze_weights` (int8 kernels);
+    calibrated: the same before freezing (float kernels, act scales);
+    means: from :func:`record_act_means`. A module without an int8 kernel,
+    a bias or a mean is left as it is. Returns a new state dict in which
+    only biases changed.
+    """
+    out = dict(frozen)
+    for mod in _modules_with(frozen, "kernel_scale"):
+        k8, bias = frozen.get(f"{mod}weight"), frozen.get(f"{mod}bias")
+        mean = means.get(f"{mod}act_mean")
+        if k8 is None or k8.dtype != torch.int8 or bias is None or mean is None:
+            continue
+        kf = calibrated[f"{mod}weight"].to(torch.float32)
+        sw = frozen[f"{mod}kernel_scale"].to(torch.float32)
+        act = frozen[f"{mod}act_scale"].to(torch.float32)
+        mean = mean.to(device=kf.device, dtype=torch.float32)
+        if act.dim() == 1:  # per channel: the act fold is in the kernel, E[x] -> E[x8]
+            k_eff = _fold_in(kf, act / _c(ACT_QMAX, act))
+            m_in = mean * torch.where(act > 0, _c(ACT_QMAX, act) / torch.clamp(act, min=1e-30),
+                                      torch.zeros_like(act))
+        else:  # per tensor: r = k8 · s_w approximates k itself
+            k_eff, m_in = kf, mean
+        r = k8.to(torch.float32) * sw.view((-1,) + (1,) * (k8.dim() - 1))
+        delta = (k_eff - r).reshape(k8.shape[0], k8.shape[1], -1).sum(-1)  # [out, in]
+        out[f"{mod}bias"] = bias + (delta @ m_in).to(bias.dtype)
     return out

@@ -9,8 +9,8 @@
 - Entry points default to the card: with no card they raise instead of
   running on the CPU; ``device="cpu"`` runs on the CPU.
 - Unported options raise instead of falling back: the int8 path serves
-  but does not train, and bias correction's ``stats`` collection is not
-  ported.
+  but does not train, and a flax collection the port does not know is
+  refused (bias correction's ``stats`` is ported and crosses over).
 """
 
 import ast
@@ -153,8 +153,12 @@ def test_quantized_inference_raises_not_implemented():
     assert sd["conv.act_scale"].shape == ()
     params, stats, quant = convert.split_collections(sd)
     assert set(quant) == {"conv.act_scale", "conv.kernel_scale"} and set(params) == {"conv.weight"}
-    with pytest.raises(NotImplementedError, match="A11"):
-        convert.flax_to_state_dict({"params": {}, "quant": {}, "stats": {}})
+    # sow leaves a tuple per module; the last value is the one JAX's correction reads
+    means = convert.flax_to_state_dict({"stats": {"conv": {"act_mean": (
+        np.zeros(2, np.float32), np.full(2, 3.0, np.float32))}}})
+    assert set(means) == {"conv.act_mean"} and means["conv.act_mean"].tolist() == [3.0, 3.0]
+    with pytest.raises(NotImplementedError, match="intermediates"):
+        convert.flax_to_state_dict({"params": {}, "intermediates": {}})
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -16,6 +16,14 @@ and ``objectdetection_torch.quant``:
 
 ``calibrate_variables`` is held against JAX's there too, sharing its
 compiled pipeline.
+
+Bias correction (``recording_means`` / ``record_act_means`` /
+``apply_bias_correction``): JAX's ``TestBiasCorrection`` cases on one
+QuantConv, the recorded means and corrected biases beside JAX's; and on the
+whole e2e_small model (R50, 64², per channel), every recorded input mean
+within 1e-5 of its largest element of JAX's, and the corrected biases
+within 1e-5 of their largest (the biases start at zero, so the bound is
+relative to the correction), from JAX's means and from the port's own.
 """
 
 import jax.numpy as jnp
@@ -177,3 +185,136 @@ def test_quant_dense_bit_equal(pc):
     np.testing.assert_array_equal(tmod.weight.numpy().T, np.asarray(frozen["params"]["kernel"]))
     np.testing.assert_array_equal(tmod(t(x)).numpy(),
                                   np.asarray(jmod.apply(frozen, jnp.asarray(x))))
+
+
+# ---------------------------------------------------------------- bias correction
+
+
+def _bias_correction_case(per_channel):
+    """JAX's TestBiasCorrection case: one 3×3 VALID QuantConv on nonzero-mean
+    inputs, calibrated, its input means recorded, frozen and corrected, in
+    both frameworks on the same weights."""
+    import flax.linen as nn
+
+    class M(nn.Module):
+        @nn.compact
+        def __call__(self, x):
+            return jq.QuantConv(16, (3, 3), padding="VALID", per_channel=per_channel,
+                                name="c")(x)
+
+    import jax
+
+    m = M()
+    rng = np.random.RandomState(0)
+    x = (rng.randn(2, 24, 24, 8) * (1.0 + np.arange(8)) + 0.7).astype(np.float32)
+    v = m.init(jax.random.PRNGKey(3), jnp.asarray(x))
+    yf, mut = m.apply(v, jnp.asarray(x), mutable=["quant"])
+    v = {**v, "quant": mut["quant"]}
+    _, mut2 = m.apply(v, jnp.asarray(x), mutable=["quant", "stats"])
+    jmeans = mut2["stats"]
+    jfrozen = jq.freeze_weights(v)
+    jcorr = jq.apply_bias_correction(jfrozen, v, jmeans)
+
+    tmod = tq.QuantConv(8, 16, 3, padding=0, per_channel=per_channel)
+    kernel = np.asarray(v["params"]["c"]["kernel"])
+    tmod.load_state_dict({"weight": t(kernel.transpose(3, 2, 0, 1)),
+                          "bias": t(np.asarray(v["params"]["c"]["bias"])),
+                          "kernel_scale": t(np.ones(16, np.float32)),
+                          "act_scale": torch.zeros(8 if per_channel else ())})
+    xt = t(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    with tq.calibration(), tq.recording_means({}) as store:
+        tyf = tmod(xt)
+    tcal = tmod.state_dict()
+    tmeans = {"act_mean": store[tmod]}
+    tfrozen = tq.freeze_weights(tcal)
+    tcorr = tq.apply_bias_correction(tfrozen, tcal, tmeans)
+
+    def outputs(sd):
+        tmod.load_state_dict(sd, assign=True)
+        return nhwc(tmod(xt))
+
+    return dict(x=x, yf=np.asarray(yf), tyf=nhwc(tyf), jmeans=jmeans, tmeans=tmeans,
+                jfrozen=jfrozen, jcorr=jcorr, tfrozen=tfrozen, tcorr=tcorr,
+                tq_out=outputs(tfrozen), tc_out=outputs(tcorr),
+                jq_out=np.asarray(m.apply(jfrozen, jnp.asarray(x))),
+                jc_out=np.asarray(m.apply(jcorr, jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_bias_correction_shrinks_the_mean_error_as_jax(per_channel):
+    r = _bias_correction_case(per_channel)
+    # the recorded means and the corrected biases are JAX's
+    np.testing.assert_allclose(r["tmeans"]["act_mean"].numpy(),
+                               np.asarray(r["jmeans"]["c"]["act_mean"][-1]), rtol=1e-6, atol=1e-6)
+    jb = np.asarray(r["jcorr"]["params"]["c"]["bias"])
+    np.testing.assert_allclose(r["tcorr"]["bias"].numpy(), jb, rtol=0,
+                               atol=1e-5 * np.abs(jb).max())
+    # JAX's TestBiasCorrection: the systematic per-channel output offset drops
+    ef = np.abs((r["tq_out"] - r["tyf"]).mean(axis=(0, 1, 2)))
+    ec = np.abs((r["tc_out"] - r["tyf"]).mean(axis=(0, 1, 2)))
+    assert np.mean(ec) < 0.6 * np.mean(ef), (np.mean(ef), np.mean(ec))
+    # only the bias changed
+    assert torch.equal(r["tfrozen"]["weight"], r["tcorr"]["weight"])
+    assert not torch.equal(r["tfrozen"]["bias"], r["tcorr"]["bias"])
+
+
+def test_bias_correction_is_a_noop_without_means():
+    r = _bias_correction_case(False)
+    out = tq.apply_bias_correction(r["tfrozen"], r["tfrozen"], {})
+    assert all(torch.equal(out[k], r["tfrozen"][k]) for k in r["tfrozen"])
+
+
+def test_whole_model_bias_correction_matches_jax():
+    # e2e_small (R50, 64², f32), quantized per channel: the port calibrates;
+    # both frameworks record the input means on the float forward from the
+    # same scales and correct the same frozen state
+    import jax
+
+    from objectdetection_tpu import detector as jdet
+    from objectdetection_tpu.config import SHAPES_CONFIG as J_SHAPES
+
+    from objectdetection_torch.config import SHAPES_CONFIG as T_SHAPES
+    from objectdetection_torch.convert import flax_to_state_dict
+
+    small = dict(image_shape=(64, 64, 3), image_min_dim=64, image_max_dim=64,
+                 pre_nms_rois_count=128, post_nms_rois_training=48, post_nms_rois_inference=32,
+                 max_gt_objects=4, compute_dtype="float32", quantized_inference=True,
+                 per_channel_acts=True, detection_post_nms_instances=16)
+    jcfg, tcfg = J_SHAPES.replace(**small), T_SHAPES.replace(**small)
+    rng = np.random.RandomState(7)
+    images = rng.uniform(-60.0, 60.0, (4, 64, 64, 3)).astype(np.float32)
+    jvars = jax.tree.map(np.asarray, jdet.init_variables(jcfg, jax.random.PRNGKey(42)))
+    tcal = tq.calibrate_variables(flax_to_state_dict(jvars), images, tcfg, batch_size=2,
+                                  device="cpu")
+
+    def fill(tree, prefix=()):
+        return {k: fill(v, prefix + (k,)) if isinstance(v, dict)
+                else tcal[".".join(prefix + (k,))].numpy() for k, v in tree.items()}
+
+    jcal = {**jvars, "quant": fill(jvars["quant"])}
+    jmeans = jax.tree.map(np.asarray, jq.record_act_means(jcal, jnp.asarray(images), jcfg,
+                                                          batch_size=2))
+    want_means = flax_to_state_dict({"stats": jmeans})
+    got_means = tq.record_act_means(tcal, images, tcfg, batch_size=2, device="cpu")
+    assert set(got_means) == set(want_means) and len(got_means) > 50
+    for k, w in want_means.items():
+        scale = float(w.abs().max()) + 1e-6
+        np.testing.assert_allclose(got_means[k].numpy(), w.numpy(), rtol=0, atol=1e-5 * scale,
+                                   err_msg=k)
+    jfrozen = jax.tree.map(np.asarray, jq.freeze_weights(jcal))
+    want = flax_to_state_dict(jax.tree.map(np.asarray, jq.apply_bias_correction(
+        jfrozen, jcal, jmeans)))
+    tfrozen = tq.freeze_weights(tcal)
+    same_means = tq.apply_bias_correction(tfrozen, tcal, want_means)
+    own_means = tq.apply_bias_correction(tfrozen, tcal, got_means)
+    # only biases change
+    assert all(torch.equal(own_means[k], v) for k, v in tfrozen.items() if not k.endswith(".bias"))
+    moved = 0
+    for k, w in want.items():
+        if not k.endswith(".bias"):
+            continue
+        tol = 1e-5 * float(w.abs().max()) + 1e-12
+        for got in (same_means[k], own_means[k]):
+            np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=0, atol=tol, err_msg=k)
+        moved += int(not torch.equal(w, tfrozen[k]))
+    assert moved > 50
