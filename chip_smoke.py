@@ -104,12 +104,35 @@ and prints no result:
    (d) ``cli eval-coco`` on it: what it hands the evaluator equals
    ``make_infer_fn`` + ``unmold_detections_np`` on the same padded batch,
    NMS twice a batch and ROIAlign once, img/s; (e) int8 bias correction at
-   SHAPES_CONFIG (f32) on 8 images, card against CPU within 1e-4.
+   SHAPES_CONFIG (f32) on 8 images, card against CPU within 1e-4;
+11. the two other detector families, seeded weights, batch 2, each path
+   driven with the launch counters set to 0 just before it and read just
+   after: (a) Faster R-CNN (VGG16, ZF anchors, f32) at its config's defaults
+   (224², 4 classes) through ``make_infer_fn`` with
+   ``faster_rcnn_detections(score_threshold=0.0)``: NMS twice a batch; (b)
+   the same at the paper's VOC test scale (600×1000, 21 classes): the
+   forward and detections, then one f32 forward and one step's targets and
+   losses held against the plain path (identical, losses within 1e-6), the
+   class-aware NMS on full rows (the forward's proposals with seeded class
+   probabilities) against the plain path, then
+   3 steps of ``make_train_step`` on 2-5 GT boxes an image (NMS 12000 ->
+   2000 at IoU 0.2 and anchor matching over 21,546 ZF anchors once a step);
+   (c) RetinaNet at COCO_CONFIG (R101-FPN, 81 classes, 1024², bf16):
+   ``make_infer_fn`` (NMS once a batch, class-aware, sorted, 1000 -> 100),
+   in f32 the detections of the kernel and the plain NMS on the same logits
+   identical, and 3 steps of ``make_retinanet_train_step`` (anchor matching
+   over 261,888 anchors × 100 GT once a step). Every NMS and anchor-match
+   call of the phase is recorded and held against its plain version on its
+   own inputs (survivor tables identical, matches exact); NMS at 12000 ->
+   2000 and each anchor-match shape are timed beside their bounds. ms a
+   batch and a step, the device busy share of one profiled batch and step,
+   and peak memory are printed with the card's name and power limit.
 
 The line before the last is the kernel table as JSON (launches counted on
 the path that runs each kernel: the training path for the four of phases
 2–6, the int8 serving paths for the fused block and the int8 ROIAlign, the
-probes' entry points for the three probe kernels); the
+probes' entry points for the three probe kernels; phase 11's launches are
+checked and logged, not tabled); the
 last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -2371,6 +2394,384 @@ def training_phase(device, card):
     bias_correction(device, card)
 
 
+# ---------------------------------------------------------------- phase 11
+
+FAMILY_STEPS = 3  # training steps of each family in phase 11
+# the kernel path's losses against the plain path's (same ops, bit-equal kernels)
+LOSS_RTOL = 1e-6
+
+
+@contextlib.contextmanager
+def recorded_inputs(calls):
+    """Record (name, args) of every NMS and anchor-match wrapper call, then
+    launch as usual: the kernels are checked on the main path's own inputs."""
+    from objectdetection_torch.ops import anchor_match, nms
+
+    saved = nms.suppress, anchor_match.anchor_match
+
+    def suppress(boxes, class_ids, iou_threshold, budget=None):
+        calls.append(("nms", (boxes, class_ids, iou_threshold, budget)))
+        return saved[0](boxes, class_ids, iou_threshold, budget)
+
+    def match(anchors, gt_boxes, gt_valid):
+        calls.append(("anchor_match", (anchors, gt_boxes, gt_valid)))
+        return saved[1](anchors, gt_boxes, gt_valid)
+
+    nms.suppress, anchor_match.anchor_match = suppress, match
+    try:
+        yield
+    finally:
+        nms.suppress, anchor_match.anchor_match = saved
+
+
+def profiled_ms(fn, top: int = 6):
+    """(host wall ms, device busy ms) of one call of ``fn`` under the
+    profiler; logs its ``top`` largest device kernels."""
+    import torch
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(prof)
+    if not busy > 0:
+        fail("phase 11: the profiler saw no device time")
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:80]}")
+    return wall, busy
+
+
+def driven(name, fn, want):
+    """Run ``fn`` with the launch counters set to 0 just before it; fail
+    unless they read ``want`` (kernel -> launches) just after."""
+    import torch
+
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: launch_counts()[k] for k in want}
+    if got != want:
+        fail(f"{name}: kernel launches {got}, want {want}")
+    return out
+
+
+def frcnn_batch(cfg, device, seed):
+    """Seeded Faster R-CNN batch: uniform pixels around 0, 2 and 5 pixel xyxy
+    GT boxes of 100-500 px sides (VOC objects at this scale), zero-padded
+    to 5."""
+    import numpy as np
+    import torch
+
+    from objectdetection_torch.faster_rcnn_train import FasterRCNNBatch
+
+    rng = np.random.RandomState(seed)
+    h, w = cfg.image_shape[:2]
+    images = rng.uniform(-128.0, 127.0, (BATCH, h, w, 3)).astype(np.float32)
+    boxes = np.zeros((BATCH, 5, 4), np.float32)
+    cls = np.zeros((BATCH, 5), np.int32)
+    for i, n in enumerate((2, 5)):
+        side = rng.uniform(min(100, h // 4), min(500, h - 1), (n, 2))
+        x1 = rng.uniform(0, w - 1 - side[:, 0])
+        y1 = rng.uniform(0, h - 1 - side[:, 1])
+        boxes[i, :n] = np.stack([x1, y1, x1 + side[:, 0], y1 + side[:, 1]], -1)
+        cls[i, :n] = rng.randint(1, cfg.num_classes, n)
+    return FasterRCNNBatch(*(torch.from_numpy(x).to(device) for x in (images, boxes, cls)))
+
+
+def frcnn_forward_vs_plain(params, images, cfg):
+    """One f32 forward and its detections through the kernels and through
+    the plain path: proposals, their valid flags and the detections equal."""
+    import torch
+
+    from objectdetection_torch.models import faster_rcnn as fr
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.inference_mode():
+            out_k = fr.apply(params, images, cfg)
+            det_k = fr.faster_rcnn_detections(out_k, cfg, score_threshold=0.0)
+            with plain_path():
+                out_p = fr.apply(params, images, cfg)
+                det_p = fr.faster_rcnn_detections(out_p, cfg, score_threshold=0.0)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for name, a, b in (("proposals_valid", out_k["proposals_valid"], out_p["proposals_valid"]),
+                       ("proposals", out_k["proposals"], out_p["proposals"]),
+                       ("detection valid", det_k.valid, det_p.valid),
+                       ("detection class ids", det_k.class_ids, det_p.class_ids),
+                       ("detection boxes", det_k.boxes, det_p.boxes)):
+        if not torch.equal(a, b):
+            fail(f"faster rcnn f32: {name} differ between the kernel and the plain path")
+    return out_k, int(det_k.valid.sum())
+
+
+def frcnn_full_rows(outputs, cfg, device):
+    """The class-aware NMS (300 -> 50) on full rows: the forward's proposals
+    and box deltas with class probabilities drawn from a seed (the random
+    head gives nearly every ROI one class); the kernel's and the plain
+    path's detections identical. Returns (detections, classes among them)."""
+    import torch
+
+    from objectdetection_torch.models import faster_rcnn as fr
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    logits = 3.0 * torch.randn(outputs["class_probs"].shape, generator=gen, device=device)
+    seeded = dict(outputs, class_probs=torch.softmax(logits, dim=-1))
+    with torch.inference_mode():
+        det_k = fr.faster_rcnn_detections(seeded, cfg, score_threshold=0.0)
+        with plain_path():
+            det_p = fr.faster_rcnn_detections(seeded, cfg, score_threshold=0.0)
+    for name, a, b in zip(det_k._fields, det_k, det_p):
+        if not torch.equal(a, b):
+            fail(f"faster rcnn seeded class probabilities: detection {name} differ between "
+                 "the kernel and the plain path")
+    return int(det_k.valid.sum()), int(torch.unique(det_k.class_ids[det_k.valid]).numel())
+
+
+def frcnn_step_vs_plain(params, batch, cfg, device):
+    """One f32 step's losses and targets through the kernels and the plain
+    path on the same batch and noise."""
+    import torch
+
+    from objectdetection_torch import faster_rcnn_train as ft
+
+    noise = ft.draw_noise(cfg, batch, torch.Generator(device=device).manual_seed(3))
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            parts_k, (rpn_k, props_k, det_k) = ft.compute_losses(params, batch, cfg, noise,
+                                                                 return_targets=True)
+            with plain_path():
+                parts_p, (rpn_p, props_p, det_p) = ft.compute_losses(params, batch, cfg, noise,
+                                                                     return_targets=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for name, a, b in (("rpn target_class", rpn_k.target_class, rpn_p.target_class),
+                       ("proposals", props_k, props_p),
+                       ("sampled rois", det_k.rois, det_p.rois),
+                       ("target_class_ids", det_k.target_class_ids, det_p.target_class_ids)):
+        if not torch.equal(a, b):
+            fail(f"faster rcnn step f32: {name} differ between the kernel and the plain path")
+    for k, v in parts_k.items():
+        ref = float(parts_p[k])
+        if not (torch.isfinite(v) and abs(float(v) - ref) <= LOSS_RTOL * abs(ref)):
+            fail(f"faster rcnn step f32: {k} kernel {float(v)} vs plain {ref}")
+    return parts_k, int(det_k.pos_mask.sum())
+
+
+def train_family(name, step, state, batches, card, want):
+    """FAMILY_STEPS steps through ``step(state, batch)``, the launch counters
+    read around them; then one profiled step. Returns the last state."""
+    import torch
+
+    state, _ = step(state, batches[0])  # cold: cuDNN heuristics, lazy init
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    history = []
+
+    def run():
+        nonlocal state
+        for i in range(FAMILY_STEPS):
+            state, metrics = step(state, batches[i % len(batches)])
+            history.append(metrics)
+
+    t0 = time.perf_counter()
+    driven(f"{name} training", run, {k: v * FAMILY_STEPS for k, v in want.items()})
+    ms = (time.perf_counter() - t0) * 1e3 / FAMILY_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, m in enumerate(history):
+        bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
+        if bad:
+            fail(f"{name} training step {i}: not finite: {bad}")
+
+    def one():
+        nonlocal state
+        state, _ = step(state, batches[0])
+
+    wall, busy = profiled_ms(one)
+    log(f"{name} training: {FAMILY_STEPS} steps, {ms:.1f} ms a step (host wall); launches "
+        f"{want} a step; peak memory {peak:.2f} GiB; profiled step wall {wall:.1f} ms, device "
+        f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%); total_loss "
+        f"{[round(float(m['total_loss']), 4) for m in history]} [{card}]")
+    return state
+
+
+def check_recorded(calls, card):
+    """Every NMS and anchor-match call the phase recorded against its plain
+    version on those inputs, logged by shape; NMS at 12000 -> 2000 and
+    each anchor-match shape timed with their bounds."""
+    import torch
+
+    from objectdetection_torch.geometry import iou_matrix
+    from objectdetection_torch.ops import anchor_match, nms
+
+    groups = {}
+    for kind, args in calls:
+        key = (kind,) + tuple(tuple(a.shape) if hasattr(a, "shape") else a for a in args)
+        groups.setdefault(key, []).append(args)
+    if {key[0] for key in groups} != {"nms", "anchor_match"}:
+        fail(f"phase 11 recorded only {sorted({key[0] for key in groups})}")
+    for key, group in groups.items():
+        for args in group:
+            if key[0] == "nms":
+                got, want = nms.suppress(*args), nms.suppress_plain(*args)
+                if not torch.equal(got, want):
+                    fail(f"nms at {key[1:]}: kernel differs from plain")
+            else:
+                got, want = anchor_match.anchor_match(*args), anchor_match.anchor_match_plain(*args)
+                for field, k, p in zip(want._fields, got, want):
+                    if not torch.equal(k, p):
+                        fail(f"anchor_match at {key[1:]}: kernel {field} differs")
+        args = group[-1]  # got and want are this call's
+        if key[0] == "nms":
+            boxes, cls, thr, budget = args
+            line = (f"nms B={boxes.shape[0]} N={boxes.shape[1]} -> {budget} thr={thr} classes "
+                    f"{int(torch.unique(cls).numel())}: kernel == plain on {len(group)} calls "
+                    f"({int((got != 0).any(-1).sum())} survivors in the last)")
+            if boxes.shape[1] == 12000:
+                rows = stop_row(want, nms.TILE, budget)
+                ms = device_ms(lambda: nms.suppress(*args))
+                plain = time_ms(lambda: nms.suppress_plain(*args), 3, warmup=1)
+                bytes_ms = boxes.shape[0] * boxes.shape[1] * (16 + 4 + 16) / PEAK_BYTES * 1e3
+                ops_ms = nms_ops(want, cls, rows) / PEAK_F32 * 1e3
+                line += (f"; kernel {ms:.4f} ms device ({rows} rows resolved), plain {plain:.3f}"
+                         f" ms, bound {max(bytes_ms, ops_ms):.5f} ms "
+                         f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) [{card}]")
+            log(line)
+        else:
+            anchors, gt, valid = args
+            a, g = anchors.shape[0], gt.shape[1]
+            ms = device_ms(lambda: anchor_match.anchor_match(*args))
+            plain = time_ms(lambda: anchor_match.anchor_match_plain(*args), 3, warmup=1)
+            overlap = int(((iou_matrix(anchors, gt) > 0) & valid.bool()[:, None, :]).sum())
+            bytes_ = a * 16 + gt.numel() * 4 + valid.numel() + gt.shape[0] * (a + g) * 8
+            bound = max(bytes_ / PEAK_BYTES, overlap * MATCH_OPS / PEAK_F32) * 1e3
+            log(f"anchor_match B={gt.shape[0]} A={a} G={g} ({int(valid.sum())} valid): kernel == "
+                f"plain on {len(group)} calls; kernel {ms:.4f} ms device, plain {plain:.3f} ms, "
+                f"bound {bound:.5f} ms ({overlap} overlapping pairs) [{card}]")
+
+
+def frcnn_phase(device, card, calls):
+    """11(a)-(b): Faster R-CNN at its defaults and at the VOC test scale."""
+    import torch
+
+    from objectdetection_torch import faster_rcnn_train as ft
+    from objectdetection_torch import optim
+    from objectdetection_torch.config import FasterRCNNConfig
+    from objectdetection_torch.convert import init_faster_rcnn_params
+    from objectdetection_torch.models import faster_rcnn as fr
+
+    for label, cfg in (("224²", FasterRCNNConfig()),
+                       ("600x1000", FasterRCNNConfig().replace(image_shape=(600, 1000, 3),
+                                                               num_classes=21))):
+        params = init_faster_rcnn_params(cfg, torch.Generator().manual_seed(0), device)
+        batch = frcnn_batch(cfg, device, 13)
+        infer = fr.make_infer_fn(cfg, score_threshold=0.0)
+        t0 = time.perf_counter()
+        with recorded_inputs(calls):
+            outputs, det = driven(f"faster rcnn {label} forward",
+                                  lambda: infer(params, batch.images), {"nms": 2})
+        first = (time.perf_counter() - t0) * 1e3
+        for k, v in outputs.items():
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                fail(f"faster rcnn {label}: {k} not finite")
+        h, w = fr.feature_shape(cfg.image_shape)
+        ms = time_host_ms(lambda: infer(params, batch.images), REPS)
+        wall, busy = profiled_ms(lambda: infer(params, batch.images))
+        log(f"faster rcnn {label} ({cfg.num_classes} classes, f32, B={BATCH}): {h * w * 9} "
+            f"anchors, {int(outputs['proposals_valid'].sum())} proposals, "
+            f"{int(det.valid.sum())} detections; first batch {first:.1f} ms, {ms:.1f} ms a "
+            f"batch; profiled batch wall {wall:.1f} ms, device busy {busy:.1f} ms "
+            f"({100 * busy / wall:.1f}%); launches NMS 2 a batch [{card}]")
+        if label == "224²":
+            continue
+        out_k, n_det = frcnn_forward_vs_plain(params, batch.images, cfg)
+        n_full, n_cls = frcnn_full_rows(out_k, cfg, device)
+        parts, n_pos = frcnn_step_vs_plain(params, batch, cfg, device)
+        log(f"faster rcnn {label} f32: forward == plain "
+            f"({int(out_k['proposals_valid'].sum())} proposals, {n_det} detections "
+            f"identical); with seeded class probabilities {n_full} detections of {n_cls} "
+            f"classes identical; one step's targets identical ({n_pos} positive ROIs), "
+            f"losses within {LOSS_RTOL} of plain: "
+            + ", ".join(f"{k} {float(v):.6g}" for k, v in parts.items()))
+        del out_k
+        state = ft.TrainState(params, optim.init(params), 0)
+        step = ft.make_train_step(cfg)
+        gen = torch.Generator(device=device).manual_seed(4)
+        with recorded_inputs(calls):
+            state = train_family(f"faster rcnn {label}", lambda s, b: step(s, b, gen), state,
+                                 [batch, frcnn_batch(cfg, device, 14)], card,
+                                 {"nms": 1, "anchor_match": 1})
+        if state.step != FAMILY_STEPS + 2:
+            fail(f"faster rcnn training: state.step {state.step}")
+
+
+def retinanet_phase(device, card, calls):
+    """11(c): RetinaNet at COCO_CONFIG (R101-FPN, 81 classes, 1024², bf16)."""
+    import torch
+
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.convert import init_retinanet_params
+    from objectdetection_torch.models import retinanet as rn
+    from objectdetection_torch.ops import nms
+
+    cfg = COCO_CONFIG
+    params = init_retinanet_params(cfg, torch.Generator().manual_seed(0), device)
+    batch = train_batch(cfg, device)
+    infer = rn.make_infer_fn(cfg, score_threshold=0.0)
+    t0 = time.perf_counter()
+    with recorded_inputs(calls):
+        det = driven("retinanet forward", lambda: infer(params, batch.images), {"nms": 1})
+    first = (time.perf_counter() - t0) * 1e3
+    if det.shape != (BATCH, cfg.detection_post_nms_instances, 6) or not bool(
+            torch.isfinite(det).all()):
+        fail(f"retinanet detections: shape {tuple(det.shape)} or not finite")
+    ms = time_host_ms(lambda: infer(params, batch.images), REPS)
+    wall, busy = profiled_ms(lambda: infer(params, batch.images))
+    log(f"retinanet (R101-FPN 1024² bf16, B={BATCH}): {int((det[..., 5] > 0).sum())} "
+        f"detections; first batch {first:.1f} ms, {ms:.1f} ms a batch; profiled batch wall "
+        f"{wall:.1f} ms, device busy {busy:.1f} ms ({100 * busy / wall:.1f}%); launches NMS 1 "
+        f"a batch [{card}]")
+
+    # in f32, the detections of the kernel and the plain path on the same logits
+    cfg32 = cfg.replace(compute_dtype="float32")
+    with torch.inference_mode():
+        logits, deltas = rn.apply(params, batch.images, cfg32)
+        det_k = rn.retinanet_detections(logits, deltas, cfg32, score_threshold=0.0)
+        saved, nms.suppress = nms.suppress, nms.suppress_plain
+        try:
+            det_p = rn.retinanet_detections(logits, deltas, cfg32, score_threshold=0.0)
+        finally:
+            nms.suppress = saved
+    if not torch.equal(det_k, det_p):
+        fail("retinanet f32: detections differ between the kernel and the plain path")
+    log(f"retinanet f32: detections == plain on the same logits "
+        f"({int((det_k[..., 5] > 0).sum())} rows)")
+    del logits, deltas
+
+    step, init_state = rn.make_retinanet_train_step(cfg)
+    with recorded_inputs(calls):
+        state = train_family("retinanet", step, init_state(params), [batch], card,
+                             {"nms": 0, "anchor_match": 1})
+    if state.count != FAMILY_STEPS + 2:
+        fail(f"retinanet training: count {state.count}")
+
+
+def families_phase(device, card):
+    """11: the Faster R-CNN and RetinaNet families; then NMS and anchor
+    matching against their plain versions on the inputs the phase gave them."""
+    t0 = time.perf_counter()
+    calls = []
+    frcnn_phase(device, card, calls)
+    retinanet_phase(device, card, calls)
+    check_recorded(calls, card)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2405,6 +2806,7 @@ def main() -> None:
     launches.update(probe_launches)
     serving_phase(device, card)
     training_phase(device, card)
+    families_phase(device, card)
 
     kernels = []
     for name, rec, source, replaces in (

@@ -12,6 +12,11 @@ the numbers. ``use_approx_topk`` is treated as exact top-k. The int8 fields
 take effect with ``quantized_inference`` (the int8 serving path,
 :mod:`objectdetection_torch.quant`), which serves but does not train
 (:func:`objectdetection_torch.detector.check_supported`).
+
+:class:`FasterRCNNConfig` is a field-for-field copy of the JAX package's
+Faster R-CNN (VGG16) configuration. It has no ``lr_schedule``: the family
+trains at a constant rate (:func:`objectdetection_torch.optim.update` with
+``constant_lr=True``).
 """
 
 from __future__ import annotations
@@ -160,3 +165,39 @@ SHAPES_CONFIG = DetectorConfig(
 )
 
 COCO_CONFIG = DetectorConfig()
+
+
+@dataclass(frozen=True)
+class FasterRCNNConfig:
+    """Faster R-CNN (VGG16, ZF anchors) configuration."""
+
+    num_classes: int = 4
+    image_shape: Tuple[int, int, int] = (224, 224, 3)
+    backbone_stride: int = 16
+    anchor_scales: Tuple[float, ...] = (8, 16, 32)
+    anchor_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+
+    # train / test proposal budgets
+    pre_nms_top_n_train: int = 12000
+    post_nms_top_n_train: int = 2000
+    pre_nms_top_n_test: int = 6000
+    post_nms_top_n_test: int = 300
+    nms_threshold: float = 0.2
+    min_box_size: float = 16.0
+
+    pool_shape: Tuple[int, int] = (7, 7)  # unread: the head pools 14x14 to 7x7
+
+    # training
+    rpn_train_anchors_per_image: int = 256
+    rpn_bbox_stddev: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
+    bbox_stddev: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
+    train_rois_per_image: int = 64
+    roi_positive_ratio: float = 0.25
+    mask_shape: Tuple[int, int] = (14, 14)  # unused (no mask head)
+    learning_rate: float = 0.001
+    learning_rate_momentum: float = 0.9
+    weight_decay: float = 5e-4
+    gradient_clip_norm: float = 10.0
+
+    def replace(self, **kw) -> "FasterRCNNConfig":
+        return dataclasses.replace(self, **kw)

@@ -30,7 +30,10 @@ res2a_branch2a``); leaves are renamed and relaid:
 :func:`init_params` draws a fresh state dict from a ``torch.Generator`` with
 the same initializer families as the flax modules (``he_normal`` for the
 stem conv, ``lecun_normal`` for every other kernel, zero biases, BN scale 1
-except the zero-init ``bn*_branch2c``).
+except the zero-init ``bn*_branch2c``); :func:`init_faster_rcnn_params` and
+:func:`init_retinanet_params` do the same for the other two families, whose
+flax trees (``vgg16``/``rpn``/``fastrcnn``; ``fpn``/``class_subnet``/
+``box_subnet``) :func:`flax_to_state_dict` maps by the same rules.
 
 :func:`split_collections` splits a state dict as flax splits its
 variables: ``params`` (every weight and bias, and the BatchNorm
@@ -178,10 +181,40 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def require_on(dev: torch.device, tensors: Mapping[str, torch.Tensor], what: str) -> None:
+    """Raise unless every tensor of ``tensors`` lives on ``dev``'s device type."""
+    wrong = [k for k, v in tensors.items() if v.device.type != dev.type]
+    if wrong:
+        raise ValueError(f"{what} must live on {dev}; {wrong[0]} is on "
+                         f"{tensors[wrong[0]].device}")
+
+
 def _fan_in(name: str, shape) -> int:
     if name.endswith("mrcnn_mask_deconv.weight"):  # [in, out, kh, kw]
         return shape[0] * shape[2] * shape[3]
     return int(np.prod(shape[1:]))  # [out, in(, kh, kw)]
+
+
+def _draw(module: torch.nn.Module, generator: Optional[torch.Generator], device,
+          he: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
+    """``module``'s state dict with every kernel drawn truncated-normal from
+    ``generator`` (seed 0 if None), in state-dict order: ``lecun_normal``, or
+    ``he_normal`` for the names in ``he``. Biases and BatchNorm leaves keep
+    the module's defaults."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    state = module.state_dict()
+    for name, t in state.items():
+        if not name.endswith(".weight") or t.dim() < 2:
+            continue
+        gain = 2.0 if name in he else 1.0
+        std = math.sqrt(gain / _fan_in(name, t.shape)) / _TRUNC_STD
+        torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+    return {k: v.to(dev) for k, v in state.items()}
+
+
+_STEM = ("fpn.resnet.conv1.weight",)  # the ResNet stem's he_normal kernel
 
 
 def init_params(
@@ -189,18 +222,27 @@ def init_params(
     generator: Optional[torch.Generator] = None,
     device="cuda",
 ) -> Dict[str, torch.Tensor]:
-    """Random f32 state dict for ``config``, drawn from a CPU ``generator``
-    (seed 0 if None) and moved to ``device``."""
+    """Random f32 Mask R-CNN state dict for ``config``, drawn from a CPU
+    ``generator`` (seed 0 if None) and moved to ``device``."""
     from objectdetection_torch.models.mask_rcnn import MaskRCNN
 
-    dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    state = MaskRCNN(config).state_dict()
-    for name, t in state.items():
-        if not name.endswith(".weight") or t.dim() < 2:
-            continue  # biases and BN statistics keep the module defaults
-        gain = 2.0 if name == "fpn.resnet.conv1.weight" else 1.0
-        std = math.sqrt(gain / _fan_in(name, t.shape)) / _TRUNC_STD
-        torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
-    return {k: v.to(dev) for k, v in state.items()}
+    return _draw(MaskRCNN(config), generator, device, he=_STEM)
+
+
+def init_faster_rcnn_params(config, generator: Optional[torch.Generator] = None,
+                            device="cuda") -> Dict[str, torch.Tensor]:
+    """Random f32 Faster R-CNN state dict for a ``FasterRCNNConfig``: every
+    conv and dense kernel ``lecun_normal``, zero biases, as the flax modules."""
+    from objectdetection_torch.models.faster_rcnn import FasterRCNN
+
+    return _draw(FasterRCNN(config), generator, device)
+
+
+def init_retinanet_params(config: DetectorConfig, generator: Optional[torch.Generator] = None,
+                          device="cuda") -> Dict[str, torch.Tensor]:
+    """Random f32 RetinaNet state dict: the backbone as :func:`init_params`
+    draws it, the subnets' kernels ``lecun_normal``, zero biases but the
+    class output's, which starts at the focal prior −log(99)."""
+    from objectdetection_torch.models.retinanet import RetinaNet
+
+    return _draw(RetinaNet(config), generator, device, he=_STEM)

@@ -40,7 +40,9 @@ from objectdetection_torch import losses as losses_lib
 from objectdetection_torch import optim
 from objectdetection_torch.anchors import config_anchors
 from objectdetection_torch.config import DetectorConfig
-from objectdetection_torch.convert import init_params, resolve_device, split_collections
+from objectdetection_torch.convert import (
+    init_params, require_on, resolve_device, split_collections,
+)
 from objectdetection_torch.layers.proposals import proposal_layer
 from objectdetection_torch.layers.targets import (
     Noise, detection_targets, rpn_targets, uniform_noise,
@@ -139,10 +141,7 @@ def make_infer_fn(config: DetectorConfig, with_masks: bool = True, device="cuda"
     dev = resolve_device(device)
 
     def infer_fn(params, images, windows):
-        wrong = [k for k, v in params.items() if v.device.type != dev.type]
-        if wrong:
-            raise ValueError(f"params must live on {dev}; {wrong[0]} is on "
-                             f"{params[wrong[0]].device}")
+        require_on(dev, params, "params")
         images = torch.as_tensor(images, dtype=torch.float32, device=dev)
         windows = torch.as_tensor(windows, dtype=torch.float32, device=dev)
         with torch.inference_mode():
@@ -299,24 +298,15 @@ def train_step(
     """One SGD step: (new state, metrics). Metrics: each loss,
     ``total_loss`` and ``grad_norm/{fpn,rpn_model,mrcnn,mrcnn_mask}``, the
     norm of each head's gradient before clipping."""
-    leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-    with torch.enable_grad():
-        parts = compute_losses({**leaves, **state.batch_stats}, batch, config, noise,
-                               generator, with_masks)
-        loss = losses_lib.total_loss(parts)
-        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-    grads = {k: torch.zeros_like(v) if g is None else g
-             for (k, v), g in zip(leaves.items(), grads)}
-    params = {k: v.detach() for k, v in state.params.items()}
-    updates, opt_state = optim.update(grads, state.opt_state, params, config, train_layers)
-    metrics = {k: v.detach() for k, v in parts.items()}
-    metrics["total_loss"] = loss.detach()
+    params, opt_state, metrics, grads = optim.sgd_step(
+        state.params,
+        lambda leaves: compute_losses({**leaves, **state.batch_stats}, batch, config, noise,
+                                      generator, with_masks),
+        state.opt_state, config, train_layers)
     for head in dict.fromkeys(k.split(".")[0] for k in grads):
         metrics[f"grad_norm/{head}"] = optim.global_norm(
             [g for k, g in grads.items() if k.split(".")[0] == head])
-    new_state = TrainState(optim.apply_updates(params, updates), state.batch_stats,
-                           opt_state, state.step + 1)
-    return new_state, metrics
+    return TrainState(params, state.batch_stats, opt_state, state.step + 1), metrics
 
 
 def make_train_step(config: DetectorConfig, with_masks: bool = False,
@@ -329,10 +319,7 @@ def make_train_step(config: DetectorConfig, with_masks: bool = False,
 
     def step(state: TrainState, batch: TrainBatch, generator=None,
              noise: Optional[TrainNoise] = None):
-        wrong = [k for k, v in state.params.items() if v.device.type != dev.type]
-        if wrong:
-            raise ValueError(f"the train state must live on {dev}; {wrong[0]} is on "
-                             f"{state.params[wrong[0]].device}")
+        require_on(dev, state.params, "the train state")
         batch = TrainBatch(*(None if x is None else torch.as_tensor(x, device=dev)
                              for x in batch))
         return train_step(state, batch, generator, config, with_masks, train_layers, noise)

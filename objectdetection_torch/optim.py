@@ -12,7 +12,10 @@ the latter adds 1e-6 to the norm, and its momentum dampens):
 
 ``lr`` is constant or optax's ``warmup_cosine_decay_schedule(0, peak,
 warmup, max(total, warmup + 1))`` at the count of updates taken, computed in
-f32 as optax does. With ``train_layers="heads"`` only the FPN laterals and
+f32 as optax does. ``update(..., constant_lr=True)`` takes
+``config.learning_rate`` whatever the schedule: the Faster R-CNN and
+RetinaNet steps build a constant-rate chain, and ``FasterRCNNConfig`` has no
+``lr_schedule``. With ``train_layers="heads"`` only the FPN laterals and
 outputs, the RPN and the ROI heads train: the other leaves get a zero update,
 no decay and no trace, and stay out of the clipping norm.
 
@@ -23,7 +26,7 @@ are updated together with ``torch._foreach_*`` operations.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -98,9 +101,11 @@ def update(
     params: Dict[str, torch.Tensor],
     config: DetectorConfig,
     train_layers: str = "all",
+    constant_lr: bool = False,
 ) -> Tuple[Dict[str, torch.Tensor], OptState]:
     """One optimizer update: (updates of the trained leaves, new state).
-    Frozen leaves get no update."""
+    Frozen leaves get no update. ``config`` is any config with the optimizer
+    fields; ``constant_lr`` ignores its ``lr_schedule``."""
     names = [k for k in params if trained(k, train_layers)]
     missing = [k for k in names if k not in state.trace]
     if missing:
@@ -114,8 +119,35 @@ def update(
     u = torch._foreach_add(g, [params[k] for k in names], alpha=config.weight_decay)
     trace = torch._foreach_add(u, [state.trace[k] for k in names],
                                alpha=config.learning_rate_momentum)
-    step = torch._foreach_mul(trace, -learning_rate(config, state.count))
+    lr = config.learning_rate if constant_lr else learning_rate(config, state.count)
+    step = torch._foreach_mul(trace, -lr)
     return dict(zip(names, step)), OptState(dict(zip(names, trace)), state.count + 1)
+
+
+def sgd_step(
+    params: Dict[str, torch.Tensor],
+    losses_fn: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]],
+    state: OptState,
+    config: DetectorConfig,
+    train_layers: str = "all",
+    constant_lr: bool = False,
+):
+    """Differentiate ``losses_fn(leaves) -> {name: loss}`` with respect to
+    ``params`` and take one :func:`update`. Returns (new params, new
+    optimizer state, metrics: each loss and their sum ``total_loss``,
+    gradients: zeros for a leaf the losses do not reach)."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        parts = losses_fn(leaves)
+        loss = sum(parts.values())
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(leaves.items(), grads)}
+    params = {k: v.detach() for k, v in params.items()}
+    updates, state = update(grads, state, params, config, train_layers, constant_lr)
+    metrics = {k: v.detach() for k, v in parts.items()}
+    metrics["total_loss"] = loss.detach()
+    return apply_updates(params, updates), state, metrics, grads
 
 
 def apply_updates(params: Dict[str, torch.Tensor],

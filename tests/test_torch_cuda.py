@@ -25,7 +25,10 @@ and with taps outside its patch; P3 also at ragged ROI counts, on mixed
 classes and on each class's edge taps and columns. Anchor matching is also held at G = 1,
 100, 300 and 2000, with every GT invalid, and twice a shape (its per-GT
 scratch is reused). The ROIAlign kernel is also held at a non-square
-crop (7×5, 5×7). The serving path's device mold is held within 1e-3 of the
+crop (7×5, 5×7). Faster R-CNN's shapes: NMS at 12000 -> 2000 and IoU 0.2
+on the proposal layer's pixel table (+1 corners), the layer itself through
+the kernel and the plain version, and anchor matching over the ZF pixel
+anchors. The serving path's device mold is held within 1e-3 of the
 CPU's with TF32 off, and the server's handler on the card answers two
 concurrent clients as it answers them in turn.
 """
@@ -404,6 +407,84 @@ def test_anchor_match_kernel_with_every_gt_invalid(cuda):
     got = anchor_match.anchor_match(anchors, gt, valid)  # the scratch is clean after it
     for k, w in zip(got, anchor_match.anchor_match_plain(anchors, gt, valid)):
         assert torch.equal(k, w)
+
+
+def zf_case(seed):
+    """Faster R-CNN at 600×1000: the ZF anchor grid (38×63×9 = 21,546 pixel
+    anchors) with random foreground scores and deltas."""
+    from objectdetection_torch.config import FasterRCNNConfig
+    from objectdetection_torch.models import faster_rcnn as fr
+
+    cfg = FasterRCNNConfig().replace(image_shape=(600, 1000, 3), num_classes=21)
+    h, w = fr.feature_shape(cfg.image_shape)
+    rng = np.random.RandomState(seed)
+    fg = torch.from_numpy(rng.rand(2, h, w, 9).astype(np.float32))
+    deltas = torch.from_numpy((rng.randn(2, h, w, 9, 4) * 0.2).astype(np.float32))
+    anchors = torch.from_numpy(fr.zf_grid_anchors((h, w), cfg.backbone_stride))
+    return cfg, fg, deltas, anchors
+
+
+def test_nms_kernel_at_the_faster_rcnn_training_budget(cuda, monkeypatch):
+    """B2 at 12000 -> 2000, IoU 0.2, on the proposal layer's own table
+    (pixel boxes, max corners shifted by +1), then the whole layer through
+    the kernel and through the plain version (its top-k, decode and gathers
+    run the same ops on both)."""
+    from objectdetection_torch.layers.proposals import top_k_stable
+    from objectdetection_torch.models import faster_rcnn as fr
+
+    cfg, fg, deltas, anchors = zf_case(7)
+    boxes = fr.clip_to_image(fr.decode_zf_deltas(anchors[None], deltas.reshape(2, -1, 4)),
+                             cfg.image_shape)
+    big = ((boxes[..., 2] - boxes[..., 0] + 1 >= cfg.min_box_size)
+           & (boxes[..., 3] - boxes[..., 1] + 1 >= cfg.min_box_size))
+    scores = torch.where(big, fg.reshape(2, -1), torch.tensor(float("-inf")))
+    top, ix = top_k_stable(scores, cfg.pre_nms_top_n_train)
+    table = torch.gather(boxes, 1, ix[..., None].expand(2, -1, 4)) + torch.tensor([0., 0, 1, 1])
+    table = torch.where(torch.isfinite(top)[..., None], table, torch.zeros_like(table))
+    assert table.shape == (2, 12000, 4)
+    table, cls = table.to(cuda), torch.zeros(2, 12000, dtype=torch.int32, device=cuda)
+    before = nms.launches
+    got = nms.suppress(table, cls, cfg.nms_threshold, cfg.post_nms_top_n_train)
+    assert nms.launches == before + 1
+    assert torch.equal(got, nms.suppress_plain(table, cls, cfg.nms_threshold,
+                                               cfg.post_nms_top_n_train))
+    # ~100 survivors an image at IoU 0.2: the budget never stops the sweep,
+    # which resolves all 12000 rows
+    assert 0 < int((got != 0).any(-1).sum(-1).max()) < cfg.post_nms_top_n_train
+
+    fg, deltas = fg.to(cuda), deltas.to(cuda)
+    props, valid = fr.zf_proposal_layer(fg, deltas, cfg, training=True)
+    monkeypatch.setattr(nms, "suppress", nms.suppress_plain)
+    want_props, want_valid = fr.zf_proposal_layer(fg, deltas, cfg, training=True)
+    assert torch.equal(valid, want_valid) and torch.equal(props, want_props)
+    assert int(valid.sum()) > 0
+
+
+def test_anchor_match_kernel_over_the_zf_anchors(cuda):
+    """B3 over Faster R-CNN's pixel anchors (21,546, many reaching outside
+    the image) and pixel GT boxes, with invalid rows and an anchor as a GT."""
+    _, _, _, anchors = zf_case(8)
+    rng = np.random.RandomState(8)
+    for g in (1, 5, 64):
+        xy = rng.uniform(0, 900, (2, g, 2))
+        wh = rng.uniform(16, 500, (2, g, 2))
+        gt = torch.from_numpy(np.concatenate([xy, np.minimum(xy + wh, [999, 599])], -1)
+                              .astype(np.float32))
+        valid = torch.from_numpy(rng.rand(2, g) > 0.25)
+        valid[:, 0] = True
+        if g > 2:
+            gt[:, 1] = anchors[4321]
+            gt[:, -1] = 0.0
+            valid[:, -1] = False
+        a, gt, valid = anchors.to(cuda), gt.to(cuda), valid.to(cuda)
+        before = anchor_match.launches
+        got = anchor_match.anchor_match(a, gt, valid)
+        assert anchor_match.launches == before + 1
+        want = anchor_match.anchor_match_plain(a, gt, valid)
+        for name, k, w in zip(want._fields, got, want):
+            assert torch.equal(k, w), (g, name)
+        if g > 2:
+            assert int(got.gt_argmax[0, 1]) == 4321
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
