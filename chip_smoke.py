@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Phases, in order; any failure exits non-zero
+Run from the root of a checkout (``--parallel-rank`` is phase 12's own
+call of its two ranks). Phases, in order; any failure exits non-zero
 and prints no result:
 
 1. card and build: the card's name and power limit, build of every kernel
@@ -126,13 +127,36 @@ and prints no result:
    own inputs (survivor tables identical, matches exact); NMS at 12000 ->
    2000 and each anchor-match shape are timed beside their bounds. ms a
    batch and a step, the device busy share of one profiled batch and step,
-   and peak memory are printed with the card's name and power limit.
+   and peak memory are printed with the card's name and power limit;
+12. data and tensor parallelism (``parallel.py``) at COCO_CONFIG with phase
+   4's weights and batch and phase 6's training batch, each path driven
+   with the launch counters set to 0 just before it and read just after
+   (NMS and ROIAlign twice a batch; NMS and anchor matching once a step,
+   ROIAlign and its gradient twice): (a) NCCL at world 1 in this process:
+   ``make_parallel_infer_fn`` equal to ``make_infer_fn``, and two bf16
+   ``make_parallel_train_step`` steps (noise drawn from a generator for the
+   whole batch) against ``make_train_step`` within the bound of 6(a); (b)
+   two ranks on the one card over gloo, subprocesses of this script
+   (``--parallel-rank``): inference one image a rank, each rank's rows equal
+   to ``make_infer_fn`` on them alone and the gathered detections the ranks'
+   rows in rank order; two f32 steps, 1 + 1 images, each from the state
+   before it: targets equal to the single process's rows (ROIs within
+   1e-6), and losses, gradient norms and each head's parameters (relative
+   to its move) within the bound of 6(a) of the single process's step taken
+   one image at a time (a rank's arithmetic) and of its step on the whole
+   batch, the parameters there unless the one-image step itself lies
+   beyond the bound (logged), equal on both ranks; (c) dp × tp = 1 × 2 on
+   the same ranks:
+   ``shard_state_tp(min_dim=512)`` holds ``mrcnn_class_conv1`` as [512,
+   12544] a rank, and two steps' ``total_loss`` equal the replicated step's
+   within rtol 1e-4. ms a batch and a step, the gradient all-reduce and
+   peak memory per rank are printed with the card's name and power limit.
 
 The line before the last is the kernel table as JSON (launches counted on
-the path that runs each kernel: the training path for the four of phases
-2–6, the int8 serving paths for the fused block and the int8 ROIAlign, the
-probes' entry points for the three probe kernels; phase 11's launches are
-checked and logged, not tabled); the
+the path that runs each kernel: the training paths of phases 6 and 12 and
+phase 12's inference paths for the four of phases 2–6, the int8 serving paths for the fused block and the
+int8 ROIAlign, the probes' entry points for the three probe kernels; phase
+11's launches are checked and logged, not tabled); the
 last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -763,6 +787,17 @@ def kernel_vs_plain(model, params, request, device):
                 fail(f"{tag}: {name}: kernel vs plain path RMS {gap} > {2 * err_p}")
 
 
+def random_request(rng, cfg):
+    """A batch of BATCH uniform random images minus the mean, each window the
+    whole canvas: phase 4's requests (phase 12 takes the first again)."""
+    import numpy as np
+
+    h, w = cfg.image_shape[:2]
+    images = rng.uniform(0, 255, (BATCH, h, w, 3)).astype(np.float32) - np.asarray(
+        cfg.mean_pixel, np.float32)
+    return images, np.tile(np.array([[0, 0, h, w]], np.float32), (BATCH, 1))
+
+
 def end_to_end(device):
     import numpy as np
     import torch
@@ -784,13 +819,9 @@ def end_to_end(device):
         f"{sum(p.numel() for p in params.values()) / 1e6:.1f}M params "
         f"(init {time.perf_counter() - t0:.1f} s)")
     rng = np.random.RandomState(0)
-    mean = np.asarray(cfg.mean_pixel, np.float32)
-    h, w = cfg.image_shape[:2]
 
     def request():
-        images = rng.uniform(0, 255, (BATCH, h, w, 3)).astype(np.float32) - mean
-        windows = np.tile(np.array([[0, 0, h, w]], np.float32), (BATCH, 1))
-        return images, windows
+        return random_request(rng, cfg)
 
     infer = detector.make_infer_fn(cfg)
     warm = request()
@@ -2445,9 +2476,10 @@ def profiled_ms(fn, top: int = 6):
     return wall, busy
 
 
-def driven(name, fn, want):
+def driven(name, fn, want, tally=None):
     """Run ``fn`` with the launch counters set to 0 just before it; fail
-    unless they read ``want`` (kernel -> launches) just after."""
+    unless they read ``want`` (kernel -> launches) just after. Adds the
+    counts read to ``tally`` if given."""
     import torch
 
     reset_launch_counts()
@@ -2456,6 +2488,9 @@ def driven(name, fn, want):
     got = {k: launch_counts()[k] for k in want}
     if got != want:
         fail(f"{name}: kernel launches {got}, want {want}")
+    if tally is not None:
+        for k, v in got.items():
+            tally[k] = tally.get(k, 0) + v
     return out
 
 
@@ -2772,6 +2807,513 @@ def families_phase(device, card):
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 12
+
+PARALLEL_STEPS = 2  # training steps of each parallel path
+# the launches of one training step with masks: NMS and anchor matching
+# once, ROIAlign and its gradient at the box and the mask stage
+STEP_LAUNCHES = {"nms": 1, "anchor_match": 1, "roi_align": 2, "roi_align_backward": 2}
+INFER_LAUNCHES = {"nms": 2, "roi_align": 2}  # a batch with masks
+TP_RTOL = 1e-4  # the TP step's total_loss: the bound of tests/test_parallel.py's TP test
+NOISE_SEED = 3  # of the generator 12(b)'s target noise is drawn from
+RANK_TIMEOUT = 600  # seconds for 12(b)-(c)'s two ranks
+# sampled ROI coordinates of a rank against the single process's (its batch
+# of 2 may take other conv algorithms than a batch of 1): the tolerance of
+# tests/test_torch_train.py; the anchors' classes are held equal
+ROI_ATOL = 1e-6
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rel_gap(got: float, want: float) -> float:
+    return abs(got - want) / abs(want) if want else (0.0 if got == want else float("inf"))
+
+
+def metrics_gap(got, want):
+    """(worst relative gap, its key) of a parallel step's losses and per-head
+    gradient norms from the single process's."""
+    return max((rel_gap(float(got[k]), float(v)), k) for k, v in want.items())
+
+
+def params_gap(got, want, base):
+    """(worst gap, its head) of the parameters after a parallel step from the
+    single process's: for each head (the ``grad_norm`` groups), the L2
+    distance over its leaves relative to the single process's move of the
+    head from ``base``."""
+    import torch
+
+    dist2, move2 = {}, {}
+    for k, p in want.items():
+        head = k.split(".")[0]
+        dist2[head] = dist2.get(head, 0.0) + float(
+            torch.linalg.vector_norm(got[k].to(p.device) - p)) ** 2
+        move2[head] = move2.get(head, 0.0) + float(torch.linalg.vector_norm(p - base[k])) ** 2
+    return max(((dist2[h] / move2[h]) ** 0.5 if move2[h] else (0.0 if dist2[h] == 0
+                                                             else float("inf")), h)
+               for h in dist2)
+
+
+def leaf_gaps(got, want, base, top: int = 3):
+    """The ``top`` leaves farthest from the single process's, each relative
+    to its own move from ``base`` (logged: a leaf whose gradient cancels,
+    such as a residual branch's last BN scale, which starts at 0, moves
+    little, and its sums reassociate across ranks)."""
+    import torch
+
+    gaps = []
+    for k, p in want.items():
+        err = float(torch.linalg.vector_norm(got[k].to(p.device) - p))
+        move = float(torch.linalg.vector_norm(p - base[k]))
+        gaps.append((err / move if move else (0.0 if err == 0 else float("inf")), k))
+    return sorted(gaps, reverse=True)[:top]
+
+
+def run_steps(step, state, batch, noises=None, generator=None):
+    """PARALLEL_STEPS steps, each given its noise or drawing from
+    ``generator``: ([(state, metrics)] after each, host ms of each)."""
+    import torch
+
+    out, ms = [], []
+    for i in range(PARALLEL_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, generator, None if noises is None else noises[i])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append((state, metrics))
+    return out, ms
+
+
+def step_targets(state, batch, cfg, noise):
+    """The targets a step from ``state`` assigns with ``noise``: the RPN's
+    anchor classes and every second-stage field, on the host."""
+    import torch
+
+    from objectdetection_torch import detector
+
+    with torch.no_grad():
+        _, (rpn, _, det) = detector.compute_losses(
+            {**state.params, **state.batch_stats}, batch, cfg, noise, with_masks=True,
+            return_targets=True)
+    return {"rpn_class": rpn.target_class.cpu(), **{k: v.cpu() for k, v in det._asdict().items()}}
+
+
+def targets_gap(ranks, single):
+    """How the ranks' targets (each of its own rows) differ from the single
+    process's: the largest gap of the ROIs and box deltas, and the count of
+    differing elements of each discrete field."""
+    import torch
+
+    gap = {}
+    for k, want in single.items():
+        got = torch.cat([r[k] for r in ranks])
+        gap[k] = (float((got - want).abs().max()) if k in ("rois", "target_deltas")
+                  else int((got != want).sum()))
+    return gap
+
+
+def one_image_step(state, batch, cfg, noise):
+    """The single process's step on ``batch`` taken one image at a time:
+    each image's losses over the whole batch's counts, their gradients
+    summed by autograd, then one update. A data-parallel rank's arithmetic
+    (a batch of 1), in one process and written apart from parallel.py.
+    Returns (state, metrics) as ``detector.train_step`` does."""
+    import torch
+
+    from objectdetection_torch import detector, optim
+
+    def rows(i):
+        return (detector.TrainBatch(*(None if x is None else x[i:i + 1] for x in batch)),
+                detector.TrainNoise(*(tuple(t[i:i + 1] for t in pair) for pair in noise)))
+
+    images = [rows(i) for i in range(batch.images.shape[0])]
+    seen = [[] for _ in images]  # each loss's count, image by image
+    with torch.no_grad():
+        for (b, nz), into in zip(images, seen):
+            detector.compute_losses({**state.params, **state.batch_stats}, b, cfg, nz,
+                                    with_masks=True, count=lambda c, into=into: into.append(c) or c)
+    totals = [sum(counts) for counts in zip(*seen)]
+
+    def losses(leaves):
+        parts = [detector.compute_losses({**leaves, **state.batch_stats}, b, cfg, nz,
+                                         with_masks=True, count=lambda c, it=iter(totals): next(it))
+                 for b, nz in images]
+        return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+    params, opt_state, metrics, grads = optim.sgd_step(state.params, losses, state.opt_state, cfg)
+    for head in dict.fromkeys(k.split(".")[0] for k in grads):
+        metrics[f"grad_norm/{head}"] = optim.named_norm(
+            {k: g for k, g in grads.items() if k.split(".")[0] == head})
+    return detector.TrainState(params, state.batch_stats, opt_state, state.step + 1), metrics
+
+
+def parallel_nccl(params, card):
+    """12(a): NCCL at world 1 in this process. Data-parallel inference on
+    phase 4's batch equal to make_infer_fn; two bf16 data-parallel steps on
+    phase 6's batch against make_train_step. Returns (the single-process
+    detections, the launches of both paths as the counters read them)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from objectdetection_torch import detector, optim, parallel
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.convert import split_collections
+
+    cfg, device = COCO_CONFIG, torch.device("cuda", 0)
+    launches = {}
+    parallel.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device=device)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"12(a): backend {dist.get_backend()}, want nccl")
+        mesh = parallel.make_mesh()
+        images, windows = (torch.as_tensor(x, device=device)
+                           for x in random_request(np.random.RandomState(0), cfg))
+        single = detector.make_infer_fn(cfg)
+        infer = parallel.make_parallel_infer_fn(cfg, mesh)
+        shard = parallel.shard_batch((images, windows), mesh)
+        want = single(params, images, windows)
+        got = driven("12(a) inference", lambda: infer(params, *shard), INFER_LAUNCHES, launches)
+        if not same_detections(got, want):
+            fail("12(a): the data-parallel detections differ from make_infer_fn's")
+        ms_single = time_host_ms(lambda: single(params, images, windows), REPS)
+        ms_par = time_host_ms(lambda: infer(params, *shard), REPS)
+
+        p, stats, _ = split_collections(params)
+        batch = train_batch(cfg, device)
+        state0 = detector.TrainState(p, stats, optim.init(p), 0)
+        torch.backends.cudnn.deterministic = True  # leave only the atomics' order free
+        try:
+            ref, ms_ref = run_steps(detector.make_train_step(cfg, with_masks=True), state0, batch,
+                                    generator=torch.Generator(device).manual_seed(1))
+            dp_step = parallel.make_parallel_train_step(cfg, mesh, with_masks=True)
+            state = parallel.replicate_state(state0, mesh)
+            shard_b = parallel.shard_batch(batch, mesh)
+            dp, ms_dp = driven(
+                "12(a) training",
+                lambda: run_steps(dp_step, state, shard_b,
+                                  generator=torch.Generator(device).manual_seed(1)),
+                {k: v * PARALLEL_STEPS for k, v in STEP_LAUNCHES.items()}, launches)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        worst = max(gap for i in range(PARALLEL_STEPS)
+                    for gap in (metrics_gap(dp[i][1], ref[i][1]),
+                                params_gap(dp[i][0].params, ref[i][0].params,
+                                           (ref[i - 1][0] if i else state0).params)))
+        if not worst[0] <= GRAD_REL:
+            fail(f"12(a): {worst[1]} lies {worst[0]:.3g} from the single process's")
+    finally:
+        dist.destroy_process_group()
+    log(f"12(a) NCCL, world 1: data-parallel inference {ms_par:.1f} ms a batch of {BATCH} "
+        f"(make_infer_fn {ms_single:.1f}), detections identical; {PARALLEL_STEPS} bf16 steps "
+        f"{[round(m, 1) for m in ms_dp]} ms (make_train_step {[round(m, 1) for m in ms_ref]}), "
+        f"losses, gradient norms and updates within {GRAD_REL} (worst {worst[0]:.3g}, "
+        f"{worst[1]}) [{card}]")
+    return detector.Detections(*(t.cpu() for t in want)), launches
+
+
+def start_ranks(tmp):
+    """12(b)-(c)'s two ranks: this script with --parallel-rank, each logging
+    to a file in ``tmp``."""
+    port, procs = free_port(), []
+    for rank in range(2):
+        with open(Path(tmp) / f"rank{rank}.log", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank", str(rank),
+                 str(port), str(tmp)], stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT)))
+    return procs
+
+
+def wait_ranks(procs, tmp):
+    """Each rank's last line (JSON); fails if a rank failed or timed out."""
+    deadline = time.perf_counter() + RANK_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1))
+    except subprocess.TimeoutExpired:
+        fail(f"12(b)-(c): the ranks did not finish in {RANK_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, p in enumerate(procs):
+        lines = (Path(tmp) / f"rank{rank}.log").read_text().splitlines()
+        if p.returncode != 0 or not lines:
+            fail(f"12(b)-(c): rank {rank} exited {p.returncode}:\n" + "\n".join(lines[-30:]))
+        try:
+            results.append(json.loads(lines[-1]))
+        except json.JSONDecodeError:
+            fail(f"12(b)-(c): rank {rank}'s last line is no result: {lines[-1]}")
+    return results
+
+
+def parallel_ranks(params, single_det, card):
+    """12(b)-(c): two ranks on the one card over gloo, subprocesses of this
+    script. The single-process f32 reference is computed here first: two
+    steps of make_train_step on phase 6's batch, with noise drawn once and
+    handed to the ranks. Each rank's step is then held against the single
+    process's steps from the same state (the first from state0, the second
+    from the ranks' first). Returns the ranks' launches."""
+    import tempfile
+
+    import torch
+
+    from objectdetection_torch import detector, optim
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.convert import split_collections
+
+    device = torch.device("cuda", 0)
+    cfg = COCO_CONFIG.replace(compute_dtype="float32")
+    p, stats, _ = split_collections(params)
+    batch = train_batch(COCO_CONFIG, device)
+    gen = torch.Generator(device).manual_seed(NOISE_SEED)
+    noises = [detector.draw_noise(cfg, batch, gen) for _ in range(PARALLEL_STEPS)]
+    state0 = detector.TrainState(p, stats, optim.init(p), 0)
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        ref, ms_ref = run_steps(detector.make_train_step(cfg, with_masks=True), state0, batch,
+                                noises)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    peak_ref = torch.cuda.max_memory_allocated() / 2**30
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save([tuple(tuple(t.cpu() for t in pair) for pair in n) for n in noises],
+                   Path(tmp) / "noise.pt")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = wait_ranks(start_ranks(tmp), tmp)
+        wall = time.perf_counter() - t0
+        dets = [torch.load(Path(tmp) / f"det_{r}.pt") for r in range(2)]
+        tgts = [torch.load(Path(tmp) / f"targets_{r}.pt") for r in range(2)]
+        got = [torch.load(Path(tmp) / f"params_{i}.pt") for i in range(PARALLEL_STEPS)]
+        trace = torch.load(Path(tmp) / "trace.pt")
+
+    # (b) inference: every rank holds the whole batch, each rank's own rows
+    # (already held equal to make_infer_fn on them alone inside the rank)
+    for f in detector.Detections._fields:
+        g0, g1 = dets[0]["det"][f], dets[1]["det"][f]
+        if not (torch.equal(g0, g1)
+                and torch.equal(g0, torch.cat([dets[0]["alone"][f], dets[1]["alone"][f]]))):
+            fail(f"12(b): the gathered {f} are not the ranks' own rows in rank order")
+    batch2 = {f: float((dets[0]["det"][f].float() - getattr(single_det, f).float()).abs().max())
+              for f in ("boxes", "scores", "masks")}
+    faults = []
+    if ranks[0]["dp_metrics"] != ranks[1]["dp_metrics"]:
+        faults.append("12(b): the ranks report different metrics")
+    if ranks[0]["params_sha"] != ranks[1]["params_sha"]:
+        faults.append("12(b): the ranks' updated parameters differ")
+    # (b) training, each step from the state before it. The ranks' targets
+    # must be the single process's rows. Each step is held against two steps
+    # of the single process from the same state: the whole batch's, and the
+    # same step taken one image at a time (a rank's arithmetic, in one
+    # process). Against the one-image step everything is held; against the
+    # whole batch's, the parameters too, unless the single process's own
+    # one-image step lies beyond the bound from its whole-batch step: a batch
+    # of 1 runs other conv and GEMM algorithms than a batch of 2, and the
+    # mask head, trained here by one positive ROI, can carry that apart.
+    got = [{k: v.to(device) for k, v in g.items()} for g in got]
+    states = [state0, detector.TrainState(got[0], stats, optim.OptState(
+        {k: v.to(device) for k, v in trace.items()}, 1), 1)]
+    whole, split = [], []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i, state in enumerate(states):
+            single = step_targets(state, batch, cfg, noises[i])
+            gap = targets_gap([t[i] for t in tgts], single)
+            roi_gap, delta_gap = gap.pop("rois"), gap.pop("target_deltas")
+            log(f"12(b) step {i + 1}: positive ROIs by image "
+                f"{single['pos_mask'].sum(dim=1).tolist()}; the ranks' targets against the "
+                f"single process's rows: ROIs within {roi_gap:.3g}, box deltas within "
+                f"{delta_gap:.3g}, differing elements {gap}")
+            if roi_gap > ROI_ATOL or any(gap.values()):
+                faults.append(f"12(b) step {i + 1}: the ranks' targets differ from the single "
+                              f"process's: ROIs {roi_gap:.3g}, {gap}")
+            whole.append(detector.train_step(state, batch, None, cfg, with_masks=True,
+                                             noise=noises[i]))
+            split.append(one_image_step(state, batch, cfg, noises[i]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for i, state in enumerate(states):
+        mine, label = ranks[0]["dp_metrics"][i], f"step {i + 1}"
+        to_whole = params_gap(got[i], whole[i][0].params, state.params)
+        to_split = params_gap(got[i], split[i][0].params, state.params)
+        apart = params_gap(split[i][0].params, whole[i][0].params, state.params)
+        log(f"12(b) {label}: losses and gradient norms within "
+            f"{metrics_gap(mine, whole[i][1])} of the whole batch's step, "
+            f"{metrics_gap(mine, split[i][1])} of the one-image step; parameters by head, "
+            f"against the step's move: {to_whole} from the whole batch's, {to_split} from the "
+            f"one-image step, which lies {apart} from the whole batch's; leaves farthest from "
+            f"the whole batch's {leaf_gaps(got[i], whole[i][0].params, state.params)}")
+        for ref_metrics, name in ((whole[i][1], "whole batch's"), (split[i][1], "one-image")):
+            worst = metrics_gap(mine, ref_metrics)
+            if not worst[0] <= GRAD_REL:
+                faults.append(f"12(b) {label}: {worst[1]} lies {worst[0]:.3g} from the "
+                              f"single process's {name} step")
+        if not to_split[0] <= GRAD_REL:
+            faults.append(f"12(b) {label}: the {to_split[1]} parameters lie "
+                          f"{to_split[0]:.3g} from the single process's one-image step")
+        if not (to_whole[0] <= GRAD_REL or apart[0] > GRAD_REL):
+            faults.append(f"12(b) {label}: the {to_whole[1]} parameters lie "
+                          f"{to_whole[0]:.3g} from the single process's whole-batch step")
+        elif not to_whole[0] <= GRAD_REL:
+            log(f"12(b) {label}: the {to_whole[1]} parameters lie {to_whole[0]:.3g} from "
+                f"the whole batch's step, as the single process's own one-image step does "
+                f"({apart[0]:.3g}): a batch of 1's arithmetic")
+    # (c) tensor parallelism
+    for r in ranks:
+        if r["tp_conv1"] != [512, 12544]:
+            faults.append(f"12(c): rank {r['rank']} holds mrcnn_class_conv1 as {r['tp_conv1']}")
+        for i in range(PARALLEL_STEPS):
+            if not rel_gap(r["tp_total_loss"][i], float(ref[i][1]["total_loss"])) <= TP_RTOL:
+                faults.append(f"12(c) step {i}: total_loss {r['tp_total_loss'][i]} vs "
+                              f"replicated {float(ref[i][1]['total_loss'])}")
+
+    log(f"12(b) gloo, 2 ranks on one card ({wall:.1f} s from launch to exit): inference "
+        f"{[r['infer_ms'] for r in ranks]} ms a batch of 1 a rank, detections gathered in "
+        f"rank order, each rank's rows equal to make_infer_fn's on them; largest gap from "
+        f"phase 12(a)'s batch of {BATCH}: {batch2}")
+    log(f"12(b) {PARALLEL_STEPS} f32 steps, 1 + 1 images: "
+        f"{[[round(m, 1) for m in r['dp_ms']] for r in ranks]} ms a step per rank "
+        f"(single process, {BATCH} images: {[round(m, 1) for m in ms_ref]}); gradient "
+        f"all-reduce {[r['allreduce_ms'] for r in ranks]} ms; peak "
+        f"{[r['dp_peak_gib'] for r in ranks]} GiB per rank (single process {peak_ref:.2f}); "
+        f"targets identical, ROIs within {ROI_ATOL}; losses, gradient norms and each head's "
+        f"parameters after each step within {GRAD_REL} of the one-image step, and of the "
+        f"whole batch's where that step lies within it [{card}]")
+    log(f"12(c) dp x tp = 1 x 2, gloo: {ranks[0]['tp_split']} leaves split (min_dim 512), "
+        f"mrcnn_class_conv1 [512, 12544] a rank; total_loss "
+        f"{[round(x, 6) for x in ranks[0]['tp_total_loss']]} (replicated "
+        f"{[round(float(m['total_loss']), 6) for _, m in ref]}, within {TP_RTOL}); "
+        f"{[[round(m, 1) for m in r['tp_ms']] for r in ranks]} ms a step per rank; peak "
+        f"{[r['tp_peak_gib'] for r in ranks]} GiB per rank (replicated {peak_ref:.2f}) [{card}]")
+    if faults:
+        fail("; ".join(faults))
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def parallel_rank(rank: int, port: int, tmp: Path) -> None:
+    """One of 12(b)-(c)'s two ranks on cuda:0 over gloo. Prints a JSON
+    object as its last line."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from objectdetection_torch import convert, detector, optim, parallel
+    from objectdetection_torch.config import COCO_CONFIG
+
+    device = torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    parallel.initialize_multihost(f"127.0.0.1:{port}", 2, rank, device=device, backend="gloo")
+    mesh = parallel.make_mesh()
+    out = {"rank": rank, "launches": {}}
+
+    def count(name, fn, want):
+        return driven(name, fn, want, out["launches"])
+
+    params = convert.init_params(COCO_CONFIG, torch.Generator().manual_seed(0), device)
+    # (b) inference, one image a rank
+    images, windows = random_request(np.random.RandomState(0), COCO_CONFIG)
+    shard = parallel.shard_batch((images, windows), mesh)
+    infer = parallel.make_parallel_infer_fn(COCO_CONFIG, mesh)
+    alone = detector.make_infer_fn(COCO_CONFIG)(params, *shard)
+    det = count("12(b) inference", lambda: infer(params, *shard), INFER_LAUNCHES)
+    mine = detector.Detections(*(t[rank:rank + 1] for t in det))
+    if not same_detections(mine, alone):
+        fail(f"12(b): rank {rank}'s rows differ from make_infer_fn's on them alone")
+    out["infer_ms"] = round(time_host_ms(lambda: infer(params, *shard), 3), 1)
+    torch.save({"det": {f: getattr(det, f).cpu() for f in detector.Detections._fields},
+                "alone": {f: getattr(alone, f).cpu() for f in detector.Detections._fields}},
+               tmp / f"det_{rank}.pt")
+
+    # (b) f32 data-parallel steps, one image a rank
+    cfg = COCO_CONFIG.replace(compute_dtype="float32")
+    p, stats, _ = convert.split_collections(params)
+    state0 = parallel.replicate_state(detector.TrainState(p, stats, optim.init(p), 0), mesh)
+    batch = train_batch(COCO_CONFIG, device)
+    shard_b = parallel.shard_batch(batch, mesh)
+    noises = [detector.TrainNoise(*(tuple(t.to(device) for t in pair) for pair in n))
+              for n in torch.load(tmp / "noise.pt")]
+
+    def own(noise):  # this rank's rows of the whole batch's noise
+        return detector.TrainNoise(*(tuple(t[rank:rank + 1] for t in pair) for pair in noise))
+
+    targets = [step_targets(state0, shard_b, cfg, own(noises[0]))]
+    torch.cuda.reset_peak_memory_stats()
+    steps, out["dp_ms"] = count(
+        "12(b) training",
+        lambda: run_steps(parallel.make_parallel_train_step(cfg, mesh, with_masks=True), state0,
+                          shard_b, noises),
+        {k: v * PARALLEL_STEPS for k, v in STEP_LAUNCHES.items()})
+    out["dp_peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
+    out["dp_metrics"] = [{k: float(v) for k, v in m.items()} for _, m in steps]
+    # the targets of each step, from the state before it
+    targets += [step_targets(steps[i - 1][0], shard_b, cfg, own(noises[i]))
+                for i in range(1, PARALLEL_STEPS)]
+    torch.save(targets, tmp / f"targets_{rank}.pt")
+    final = steps[-1][0].params
+    sha = hashlib.sha256()
+    for k in sorted(final):
+        sha.update(final[k].cpu().numpy().tobytes())
+    out["params_sha"] = sha.hexdigest()
+    if rank == 0:  # each step's parameters, and the momenta the second step starts from
+        for i, (state, _) in enumerate(steps):
+            torch.save({k: v.cpu() for k, v in state.params.items()}, tmp / f"params_{i}.pt")
+        torch.save({k: v.cpu() for k, v in steps[0][0].opt_state.trace.items()}, tmp / "trace.pt")
+    zeros = {k: torch.zeros_like(v) for k, v in final.items()}
+    out["allreduce_ms"] = round(time_host_ms(
+        lambda: parallel.all_reduce(zeros, mesh.get_group("data")), 3), 1)
+    del steps, final, zeros
+
+    # (c) dp x tp = 1 x 2 on the same two ranks, the whole batch on each
+    mesh2 = parallel.make_dp_tp_mesh(1, 2)
+    tp_state = parallel.shard_state_tp(state0, mesh2, min_dim=512)
+    split = parallel.tp_split_dims(p, 2, 512)
+    out["tp_split"] = len(split)
+    out["tp_conv1"] = list(tp_state.params["mrcnn.mrcnn_class_conv1.weight"].shape)
+    del state0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = parallel.make_tp_train_step(cfg, mesh2, split, with_masks=True)
+    steps, out["tp_ms"] = count(
+        "12(c) training",
+        lambda: run_steps(run, tp_state, batch, noises),
+        {k: v * PARALLEL_STEPS for k, v in STEP_LAUNCHES.items()})
+    out["tp_peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
+    out["tp_total_loss"] = [float(m["total_loss"]) for _, m in steps]
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def parallel_phase(params, card):
+    """12: data and tensor parallelism (parallel.py) on the one card.
+    Returns the kernels' launches of its paths as the counters read them."""
+    t0 = time.perf_counter()
+    single_det, launches = parallel_nccl(params, card)
+    for k, v in parallel_ranks(params, single_det, card).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2807,6 +3349,8 @@ def main() -> None:
     serving_phase(device, card)
     training_phase(device, card)
     families_phase(device, card)
+    for k, v in parallel_phase(params, card).items():
+        launches[k] += v
 
     kernels = []
     for name, rec, source, replaces in (
@@ -2854,4 +3398,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+    else:
+        main()

@@ -10,6 +10,10 @@ Three families on an NVIDIA Hopper card, each served and trained:
 - RetinaNet (ResNet + FPN): ``models.retinanet.make_infer_fn`` and
   ``models.retinanet.make_retinanet_train_step``.
 
+Mask R-CNN also runs data- and tensor-parallel on ``torch.distributed``
+(``parallel``: one process a device, NCCL on the card), and ``cli
+eval-coco --data-parallel`` evaluates that way.
+
 The NMS, ROIAlign, anchor-matching and fused int8 kernels are hand-written
 CUDA under ``csrc/``, built on first use (``ops/cuda_build.py``). The
 package imports torch and numpy only.

@@ -16,7 +16,10 @@ differences: ``quantize`` takes no ``--train-steps``, ``--lr`` or
 checkpoint restore needs, and a port checkpoint carries its own);
 ``train --resume`` and ``quantize --ckpt`` read the port's own checkpoints;
 ``train-coco --remat`` is read and ignored (it only trades memory in JAX).
-``eval-coco --data-parallel`` raises: ``parallel.py`` is not ported. Each
+``eval-coco --data-parallel`` shards each batch over the processes of a
+launch (``parallel.py``): ``torchrun --nproc_per_node N -m
+objectdetection_torch.cli eval-coco ... --data-parallel`` spans N ranks
+(NCCL, one card each); a plain run is a world of one. Each
 command is a function of a config and a device (:func:`run_train`,
 :func:`run_demo`, :func:`run_infer`, :func:`run_train_coco`,
 :func:`run_eval_coco`, :func:`run_quantize`) wrapped by its ``cmd_*``,
@@ -463,28 +466,35 @@ def run_eval_coco(annotations: str, image_dir: str, config=None, weights: Option
     """COCO mAP (0.50:0.95) of ``config`` (default ``COCO_CONFIG``) with
     ``init_params`` seed 0 or the h5 ``weights``, on a
     COCO-format dataset, through :func:`~objectdetection_torch.coco_eval.
-    run_coco_eval`. Returns (results, images per second of inference)."""
+    run_coco_eval`. ``data_parallel`` shards each batch over
+    ``parallel.make_mesh()``: every process of a ``torchrun`` launch, or a
+    world of one; a process group this function starts, it ends. Returns
+    (results, images per second of inference)."""
     import torch
+    import torch.distributed as dist
 
-    from objectdetection_torch import checkpoint
+    from objectdetection_torch import checkpoint, parallel
     from objectdetection_torch.coco_eval import run_coco_eval
     from objectdetection_torch.config import COCO_CONFIG
     from objectdetection_torch.convert import init_params, resolve_device
     from objectdetection_torch.data.coco import CocoDataset
 
-    if data_parallel:
-        raise NotImplementedError(
-            "eval-coco --data-parallel shards the batch over a device mesh through "
-            "parallel.py, which is not ported yet (ROADMAP A9); run without it")
     dev = resolve_device(device)
-    cfg = config or COCO_CONFIG
-    ds = CocoDataset(annotations, image_dir, native_decode=dev.type == "cuda")
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    if weights:
-        params = checkpoint.load_matterport_h5(weights, params)
-    results, ips = run_coco_eval(ds, _to_device(params, dev), cfg, batch_size=batch,
-                                 max_images=max_images or None, device=dev)
-    print(f"final: mAP={results['mAP']:.4f} @ {ips:.1f} img/s")
+    started = data_parallel and not dist.is_initialized()
+    mesh = parallel.make_mesh(device=dev) if data_parallel else None
+    try:
+        cfg = config or COCO_CONFIG
+        ds = CocoDataset(annotations, image_dir, native_decode=dev.type == "cuda")
+        params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        if weights:
+            params = checkpoint.load_matterport_h5(weights, params)
+        results, ips = run_coco_eval(ds, _to_device(params, dev), cfg, batch_size=batch,
+                                     max_images=max_images or None, mesh=mesh, device=dev)
+        if mesh is None or parallel.is_lead():
+            print(f"final: mAP={results['mAP']:.4f} @ {ips:.1f} img/s")
+    finally:
+        if started:
+            dist.destroy_process_group()
     return results, ips
 
 
@@ -624,7 +634,8 @@ def main(argv=None):
     e.add_argument("--batch", type=int, default=8)
     e.add_argument("--max-images", type=int, default=0)
     e.add_argument("--data-parallel", action="store_true",
-                   help="not ported: raises (parallel.py, ROADMAP A9)")
+                   help="shard each batch over the processes of a torchrun launch "
+                        "(NCCL on the card, one card a process; a plain run is a world of 1)")
     add_device(e)
     e.set_defaults(fn=cmd_eval_coco)
 

@@ -1,12 +1,14 @@
 """Batched COCO evaluation.
 
-Port of ``objectdetection_tpu.coco_eval`` on one device: molds each batch
-of a COCO-format dataset on the host, runs ``make_infer_fn`` without masks,
+Port of ``objectdetection_tpu.coco_eval``: molds each batch of a
+COCO-format dataset on the host, runs ``make_infer_fn`` without masks,
 unmolds the detections to each image's own pixels on the host
 (``unmold_detections_np``, one device-to-host copy a batch) and accumulates
-COCO-style mAP over the 0.50:0.95 IoU sweep, crowd regions ignored. The
-JAX function's ``mesh`` (data-parallel sharding through ``parallel.py``) is
-not ported.
+COCO-style mAP over the 0.50:0.95 IoU sweep, crowd regions ignored. With a
+``mesh`` (``parallel.make_mesh``), each process molds and infers only its
+rows of every batch (``parallel.make_parallel_infer_fn``); the detections,
+windows and image shapes are gathered, so every process unmolds and scores
+every image, and only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -32,29 +34,40 @@ def run_coco_eval(
     verbose: bool = True,
     device="cuda",
 ):
-    """Evaluate the detector (state dict ``params`` on ``device``) on a
-    COCO-style dataset. A last batch short of ``batch_size`` is padded with
-    zero images, windows and shapes of 1, as in JAX. The inference time
-    ends with the detections' copy to the host. Returns (results dict from
-    DetectionEvaluator, images_per_sec)."""
+    """Evaluate the detector (state dict ``params`` on ``device``, or on this
+    process's device of ``mesh``) on a COCO-style dataset. A last batch
+    short of ``batch_size`` is padded with zero images, windows and shapes
+    of 1, as in JAX; with a mesh, ``batch_size`` must divide by its ``data``
+    axis. The inference time ends with the detections' copy to the host.
+    Returns (results dict from DetectionEvaluator, images_per_sec)."""
     from objectdetection_torch import detector
     from objectdetection_torch.data.preprocess import unmold_detections_np
 
-    if mesh is not None:
-        raise NotImplementedError("run_coco_eval: the data-parallel mesh needs parallel.py, "
-                                  "which is not ported yet (ROADMAP A9)")
     image_ids = dataset.image_ids[:max_images] if max_images else dataset.image_ids
     thresholds = list(iou_thresholds or coco_iou_thresholds())
     ev = DetectionEvaluator(config.num_classes, iou_thresholds=thresholds)
-    infer = detector.make_infer_fn(config, with_masks=False, device=device)
+    if mesh is None:
+        infer = detector.make_infer_fn(config, with_masks=False, device=device)
+        first, rows = 0, batch_size
+    else:
+        from objectdetection_torch import parallel
+
+        ranks = parallel.data_size(mesh)
+        if batch_size % ranks:
+            raise ValueError(f"batch_size {batch_size} does not split over {ranks} ranks")
+        infer = parallel.make_parallel_infer_fn(config, mesh, with_masks=False)
+        rows = batch_size // ranks
+        first = parallel.data_rank(mesh) * rows
+        verbose = verbose and parallel.is_lead()
 
     d = config.image_max_dim
     n_done = 0
     t_infer = 0.0
     for start in range(0, len(image_ids), batch_size):
         ids = image_ids[start: start + batch_size]
-        pad = batch_size - len(ids)
-        images, windows, shapes = eval_batch(dataset, ids, config)
+        mine = ids[first: first + rows]
+        pad = rows - len(mine)
+        images, windows, shapes = eval_batch(dataset, mine, config)
         if pad:
             images = np.pad(images, ((0, pad), (0, 0), (0, 0), (0, 0)))
             windows = np.pad(windows, ((0, pad), (0, 0)), constant_values=1)
@@ -62,6 +75,9 @@ def run_coco_eval(
 
         t0 = time.time()
         det = infer(params, images, windows)
+        if mesh is not None:
+            windows, shapes = (x.cpu().numpy() for x in parallel.gather_batch((windows, shapes),
+                                                                             mesh))
         det_boxes_h = det.boxes.float().cpu().numpy()  # also syncs for timing
         t_infer += time.time() - t0
 

@@ -189,10 +189,15 @@ def require_on(dev: torch.device, tensors: Mapping[str, torch.Tensor], what: str
                          f"{tensors[wrong[0]].device}")
 
 
+def out_feature_dim(name: str) -> int:
+    """The dim of the state-dict tensor ``name`` that flax's kernel keeps
+    last (its output features): 1 for the mask head's transposed conv
+    ([in, out, kh, kw]), 0 for every other weight ([out, in(, kh, kw)])."""
+    return 1 if name.endswith("mrcnn_mask_deconv.weight") else 0
+
+
 def _fan_in(name: str, shape) -> int:
-    if name.endswith("mrcnn_mask_deconv.weight"):  # [in, out, kh, kw]
-        return shape[0] * shape[2] * shape[3]
-    return int(np.prod(shape[1:]))  # [out, in(, kh, kw)]
+    return int(np.prod(shape)) // shape[out_feature_dim(name)]
 
 
 def _draw(module: torch.nn.Module, generator: Optional[torch.Generator], device,

@@ -15,7 +15,9 @@ state dict into the flax collections (``params`` train, BatchNorm
 
 Target sampling draws uniform noise (:class:`TrainNoise`); a step draws it
 from the ``torch.Generator`` it is given unless the caller passes it, which
-is how the tests feed both frameworks the same numbers.
+is how the tests feed both frameworks the same numbers. A :class:`Sync`
+makes :func:`train_step` one process's part of a data- or tensor-parallel
+step (``parallel.py``); the default is a single process.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``make_infer_fn(config)`` and ``make_train_step(config)`` mean
@@ -31,7 +33,7 @@ kernels with :func:`freeze_weights`, and serve the result with
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import functional_call
@@ -50,7 +52,7 @@ from objectdetection_torch.layers.targets import (
 from objectdetection_torch.models.mask_rcnn import MaskRCNN
 from objectdetection_torch.quant import calibrate_variables, freeze_weights
 
-__all__ = ["Detections", "TrainBatch", "TrainNoise", "TrainState", "build_model",
+__all__ = ["Detections", "Sync", "TrainBatch", "TrainNoise", "TrainState", "build_model",
            "calibrate_variables", "check_state", "check_supported", "compute_losses",
            "create_train_state", "draw_noise", "forward_inference", "freeze_weights",
            "init_params", "make_infer_fn", "make_train_step", "train_step"]
@@ -183,9 +185,12 @@ class TrainState(NamedTuple):
 
 
 def draw_noise(config: DetectorConfig, batch: TrainBatch,
-               generator: Optional[torch.Generator] = None) -> TrainNoise:
-    """The noise a step needs, drawn from ``generator``."""
+               generator: Optional[torch.Generator] = None,
+               rows: Optional[int] = None) -> TrainNoise:
+    """The noise a step needs, drawn from ``generator``: for ``rows``
+    images (a data-parallel step's global batch), by default the batch's."""
     b, g = batch.gt_boxes.shape[:2]
+    b = b if rows is None else rows
     p = config.post_nms_rois_training + (g if config.train_append_gt else 0)
     dev = batch.images.device
     return TrainNoise(rpn=uniform_noise((b, config.num_anchors()), generator, dev),
@@ -208,7 +213,7 @@ def _bound_model(config: DetectorConfig) -> _Bound:
 
 
 def _losses(model: MaskRCNN, batch: TrainBatch, config: DetectorConfig,
-            noise: TrainNoise, with_masks: bool):
+            noise: TrainNoise, with_masks: bool, count: losses_lib.Count):
     cfg = config
     b = batch.images.shape[0]
     dev = batch.images.device
@@ -236,19 +241,19 @@ def _losses(model: MaskRCNN, batch: TrainBatch, config: DetectorConfig,
     if active is None:
         active = torch.ones((b, cfg.num_classes), dtype=torch.int32, device=dev)
     out = {
-        "rpn_class_loss": losses_lib.rpn_class_loss(rpn_tgt.target_class, rpn_logits),
+        "rpn_class_loss": losses_lib.rpn_class_loss(rpn_tgt.target_class, rpn_logits, count),
         "rpn_box_loss": losses_lib.rpn_box_loss(rpn_tgt.target_deltas, rpn_deltas,
-                                                rpn_tgt.target_class),
+                                                rpn_tgt.target_class, count),
         "mrcnn_class_loss": losses_lib.mrcnn_class_loss(det_tgt.target_class_ids, cls_logits,
-                                                        active.to(torch.int64)),
+                                                        active.to(torch.int64), count),
         "mrcnn_box_loss": losses_lib.mrcnn_box_loss(
             det_tgt.target_deltas, bbox, det_tgt.target_class_ids,
-            compat_reference=cfg.compat_reference_box_loss),
+            compat_reference=cfg.compat_reference_box_loss, count=count),
     }
     if masks is not None:
         mask_probs = model.predict_masks(feats, det_tgt.rois)  # every class
         out["mask_loss"] = losses_lib.mask_loss(det_tgt.target_masks, mask_probs,
-                                                det_tgt.target_class_ids)
+                                                det_tgt.target_class_ids, count)
     return out, (rpn_tgt, proposals, det_tgt)
 
 
@@ -260,6 +265,7 @@ def compute_losses(
     generator: Optional[torch.Generator] = None,
     with_masks: bool = False,
     return_targets: bool = False,
+    count: losses_lib.Count = losses_lib.this_batch,
 ):
     """Forward pass + target assignment + every loss.
 
@@ -267,13 +273,15 @@ def compute_losses(
     device. ``noise`` defaults to a draw from ``generator``. Returns the dict
     of losses, plus ``(RPNTargets, proposals, DetectionTargets)`` with
     ``return_targets``. Masks enter with ``with_masks`` and ``batch.gt_masks``.
+    ``count`` maps each loss's denominator (``losses.py``).
     """
     check_supported(config, training=True)
     if noise is None:
         noise = draw_noise(config, batch, generator)
     with_masks = with_masks and batch.gt_masks is not None
     out, targets = functional_call(_bound_model(config), params,
-                                   (_losses, batch, config, noise, with_masks), strict=True)
+                                   (_losses, batch, config, noise, with_masks, count),
+                                   strict=True)
     return (out, targets) if return_targets else out
 
 
@@ -286,6 +294,20 @@ def create_train_state(config: DetectorConfig, generator: Optional[torch.Generat
     return TrainState(params, stats, optim.init(params, train_layers), 0)
 
 
+def _same(x):
+    return x
+
+
+class Sync(NamedTuple):
+    """How one process's step joins a data- or tensor-parallel step
+    (``parallel.py``); the defaults are a single process's."""
+
+    weights: Callable[[optim.Grads], optim.Grads] = _same  # trained leaves → the forward's
+    count: losses_lib.Count = losses_lib.this_batch  # a loss's denominator → the global one
+    grads: Callable[[optim.Grads], optim.Grads] = _same  # gradients → summed over processes
+    norm: Callable[[optim.Grads], torch.Tensor] = optim.named_norm  # the whole gradient's L2
+
+
 def train_step(
     state: TrainState,
     batch: TrainBatch,
@@ -294,18 +316,19 @@ def train_step(
     with_masks: bool = False,
     train_layers: str = "all",
     noise: Optional[TrainNoise] = None,
+    sync: Sync = Sync(),
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One SGD step: (new state, metrics). Metrics: each loss,
     ``total_loss`` and ``grad_norm/{fpn,rpn_model,mrcnn,mrcnn_mask}``, the
     norm of each head's gradient before clipping."""
     params, opt_state, metrics, grads = optim.sgd_step(
         state.params,
-        lambda leaves: compute_losses({**leaves, **state.batch_stats}, batch, config, noise,
-                                      generator, with_masks),
-        state.opt_state, config, train_layers)
+        lambda leaves: compute_losses({**sync.weights(leaves), **state.batch_stats}, batch,
+                                      config, noise, generator, with_masks, count=sync.count),
+        state.opt_state, config, train_layers, reduce_grads=sync.grads, norm=sync.norm)
     for head in dict.fromkeys(k.split(".")[0] for k in grads):
-        metrics[f"grad_norm/{head}"] = optim.global_norm(
-            [g for k, g in grads.items() if k.split(".")[0] == head])
+        metrics[f"grad_norm/{head}"] = sync.norm(
+            {k: g for k, g in grads.items() if k.split(".")[0] == head})
     return TrainState(params, state.batch_stats, opt_state, state.step + 1), metrics
 
 

@@ -20,13 +20,17 @@ outputs, the RPN and the ROI heads train: the other leaves get a zero update,
 no decay and no trace, and stay out of the clipping norm.
 
 Parameters are dicts of tensors named as in the port's state dict; leaves
-are updated together with ``torch._foreach_*`` operations.
+are updated together with ``torch._foreach_*`` operations. A data- or
+tensor-parallel step (``parallel.py``) hands :func:`sgd_step` two hooks:
+``reduce_grads`` sums the gradients over the processes between
+differentiation and update, and ``norm`` (also :func:`update`'s) takes the
+clipping norm of the whole gradient where this process holds slices of it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,6 +99,14 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+Grads = Dict[str, torch.Tensor]
+
+
+def named_norm(grads: Grads) -> torch.Tensor:
+    """The default ``norm``: :func:`global_norm` of named tensors."""
+    return global_norm(list(grads.values()))
+
+
 def update(
     grads: Dict[str, torch.Tensor],
     state: OptState,
@@ -102,17 +114,19 @@ def update(
     config: DetectorConfig,
     train_layers: str = "all",
     constant_lr: bool = False,
+    norm: Callable[[Grads], torch.Tensor] = named_norm,
 ) -> Tuple[Dict[str, torch.Tensor], OptState]:
     """One optimizer update: (updates of the trained leaves, new state).
     Frozen leaves get no update. ``config`` is any config with the optimizer
-    fields; ``constant_lr`` ignores its ``lr_schedule``."""
+    fields; ``constant_lr`` ignores its ``lr_schedule``; ``norm`` gives the
+    clipping norm of the trained leaves' gradients."""
     names = [k for k in params if trained(k, train_layers)]
     missing = [k for k in names if k not in state.trace]
     if missing:
         raise ValueError(f"optimizer state has no trace for {missing[0]} "
                          f"(built for other train_layers than {train_layers!r}?)")
     g = [grads[k] for k in names]
-    g_norm = global_norm(g)
+    g_norm = norm(dict(zip(names, g)))
     max_norm = config.gradient_clip_norm
     if not bool(g_norm < max_norm):  # clip (also when the norm is not finite)
         g = torch._foreach_mul(torch._foreach_div(g, g_norm), max_norm)
@@ -131,11 +145,14 @@ def sgd_step(
     config: DetectorConfig,
     train_layers: str = "all",
     constant_lr: bool = False,
+    reduce_grads: Optional[Callable[[Grads], Grads]] = None,
+    norm: Callable[[Grads], torch.Tensor] = named_norm,
 ):
     """Differentiate ``losses_fn(leaves) -> {name: loss}`` with respect to
-    ``params`` and take one :func:`update`. Returns (new params, new
-    optimizer state, metrics: each loss and their sum ``total_loss``,
-    gradients: zeros for a leaf the losses do not reach)."""
+    ``params``, pass the gradients through ``reduce_grads`` if given, and
+    take one :func:`update`. Returns (new params, new optimizer state,
+    metrics: each loss and their sum ``total_loss``, the gradients the
+    update took: zeros for a leaf the losses do not reach)."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
         parts = losses_fn(leaves)
@@ -143,8 +160,10 @@ def sgd_step(
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     grads = {k: torch.zeros_like(v) if g is None else g
              for (k, v), g in zip(leaves.items(), grads)}
+    if reduce_grads is not None:
+        grads = reduce_grads(grads)
     params = {k: v.detach() for k, v in params.items()}
-    updates, state = update(grads, state, params, config, train_layers, constant_lr)
+    updates, state = update(grads, state, params, config, train_layers, constant_lr, norm)
     metrics = {k: v.detach() for k, v in parts.items()}
     metrics["total_loss"] = loss.detach()
     return apply_updates(params, updates), state, metrics, grads

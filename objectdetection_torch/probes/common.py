@@ -48,18 +48,21 @@ def per_call_ms(prof, reps: int) -> Dict[str, float]:
 def device_ms(fn: Callable[[], object], reps: int = 20) -> float:
     """Device time per call of everything ``fn`` launches, from
     torch.profiler (CUDA events around back-to-back calls measure the host
-    where a call's enqueue outlasts its kernels)."""
+    where a call's enqueue outlasts its kernels). A window in which the
+    profiler delivers no kernel record at all (seen once on an H100) is
+    profiled once more; a second empty one raises."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(per_call_ms(prof, reps).values())
-    if not total > 0:
-        raise RuntimeError("device_ms: the profiler saw no device time")
-    return total
+    for _ in range(2):
+        with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(per_call_ms(prof, reps).values())
+        if total > 0:
+            return total
+    raise RuntimeError("device_ms: the profiler saw no device time")
 
 
 def timed(fn: Callable[[], object], iters: int, device: torch.device) -> Tuple[float, StepTimer]:

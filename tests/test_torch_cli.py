@@ -18,8 +18,9 @@ At the small f32 config (R50, 64², ``detection_min_threshold=0``) on the CPU:
 - ``main``: ``quantize`` keeps JAX's default ``--config shapes`` and
   calibrates on the shapes dataset (``SHAPES_CONFIG`` patched to the small
   config); the artifact serves the frozen state's answer. ``quantize``
-  refuses JAX's optimizer flags; ``eval-coco --data-parallel`` raises
-  naming ROADMAP A9; ``bench`` says it is not ported; the commands default
+  refuses JAX's optimizer flags; ``eval-coco --data-parallel`` launched
+  plainly evaluates over a world of one and gives the evaluator the
+  single-device rows; ``bench`` says it is not ported; the commands default
   to the card and raise without one.
 - ``run_train`` for 3 steps against JAX's ``cmd_train`` (``SHAPES_CONFIG``
   patched to the small config with ``train_append_gt``, JAX's dataset at
@@ -52,6 +53,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from objectdetection_tpu import checkpoint as jck
 from objectdetection_tpu import detector as jdet
@@ -68,6 +70,7 @@ from objectdetection_torch.convert import flax_to_state_dict, train_state_from_f
 from objectdetection_torch.data import image_io
 from objectdetection_torch.data.preprocess import mold_image_host, unmold_detections
 from objectdetection_torch.detector import make_infer_fn
+from objectdetection_torch.evaluate import DetectionEvaluator
 
 torch.set_num_threads(1)
 
@@ -223,9 +226,31 @@ def test_main_commands_default_to_the_card(tmp_path):
             cli.main(argv)
 
 
-def test_eval_coco_data_parallel_and_bench_are_refused():
-    with pytest.raises(NotImplementedError, match="A9"):
-        cli.main(["eval-coco", "a.json", "imgs", "--data-parallel", "--device", "cpu"])
+def test_eval_coco_data_parallel_and_bench_are_refused(tmp_path, monkeypatch):
+    # bench is refused; eval-coco --data-parallel, launched plainly, runs over
+    # a world of one and hands the evaluator what the single-device run does
+    ann_file, root = tiny_coco(tmp_path)
+    rows = []
+    add = DetectionEvaluator.add_image
+
+    def record(self, *args, **kwargs):
+        rows.append([np.asarray(x) for x in args[:3]])
+        return add(self, *args, **kwargs)
+
+    monkeypatch.setattr(DetectionEvaluator, "add_image", record)
+    single, _ = cli.run_eval_coco(ann_file, root, config=TCFG, batch=2, device="cpu")
+    parallel, _ = cli.run_eval_coco(ann_file, root, config=TCFG, batch=2, data_parallel=True,
+                                    device="cpu")
+    assert not dist.is_initialized()  # the command ends the process group it started
+    assert len(rows) == 4 and sum(len(r[0]) for r in rows) > 0
+    for got, want in zip(rows[2:], rows[:2]):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert parallel["mAP"] == single["mAP"]
+    seen = {}
+    monkeypatch.setattr(cli, "run_eval_coco", lambda *a, **kw: seen.update(kw))
+    cli.main(["eval-coco", "a.json", "imgs", "--data-parallel", "--device", "cpu"])
+    assert seen["data_parallel"] is True
     with pytest.raises(SystemExit, match="not ported"):
         cli.main(["bench"])
 
@@ -419,7 +444,9 @@ def test_demo_writes_pngs_at_the_image_size(tmp_path):
         assert len(r["boxes"]) == len(r["scores"]) > 0
 
 
-def test_train_coco_boxes_only_without_pycocotools(tmp_path, capsys):
+def tiny_coco(tmp_path):
+    """Two PNG photos with two boxes each (categories 5 and 9) in a COCO
+    layout: (annotation file, image directory)."""
     root = tmp_path / "images"
     root.mkdir()
     rng = np.random.RandomState(3)
@@ -434,7 +461,12 @@ def test_train_coco_boxes_only_without_pycocotools(tmp_path, capsys):
     ann_file = tmp_path / "instances.json"
     ann_file.write_text(json.dumps(dict(images=images, annotations=anns, categories=[
         dict(id=5, name="a"), dict(id=9, name="b")])))
-    state, rec = cli.run_train_coco(str(ann_file), str(root), base=TTRAIN, steps=2, batch=2,
+    return str(ann_file), str(root)
+
+
+def test_train_coco_boxes_only_without_pycocotools(tmp_path, capsys):
+    ann_file, root = tiny_coco(tmp_path)
+    state, rec = cli.run_train_coco(ann_file, root, base=TTRAIN, steps=2, batch=2,
                                     masks=True, remat=True, log_every=1,
                                     ckpt=str(tmp_path / "ck"), device="cpu")
     assert "pycocotools unavailable — training boxes only" in capsys.readouterr().err

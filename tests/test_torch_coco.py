@@ -16,7 +16,9 @@ by the port's encoder; one JPEG), as tests/test_coco.py builds one:
 - ``run_coco_eval`` on e2e_small (R50, 64², f32) with JAX's weights, on
   ground truth drawn from the model's own detections (so that the mAP is
   not trivially 0) and a ragged last batch: the same mAP as JAX's within
-  1e-6, and the same detection count for every image.
+  1e-6, and the same detection count for every image; the same through
+  ``mesh=parallel.make_mesh()`` at a world of one (gloo), which hands the
+  evaluator the same rows.
 """
 
 import json
@@ -25,12 +27,14 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from objectdetection_tpu import coco_eval as jce
 from objectdetection_tpu.config import SHAPES_CONFIG as J_SHAPES
 from objectdetection_tpu.data import coco as jcoco
 
 from objectdetection_torch import coco_eval as tce
+from objectdetection_torch import parallel
 from objectdetection_torch.config import SHAPES_CONFIG as T_SHAPES
 from objectdetection_torch.data import coco as tcoco
 from objectdetection_torch.data.image_io import encode_png
@@ -237,6 +241,17 @@ def test_run_coco_eval_matches_jax(mini_coco, jax_variables, tmp_path, monkeypat
     assert tres["mAP"] > 0.1
     assert abs(tres["mAP"] - jres["mAP"]) <= 1e-6
     assert tres["per_class"].keys() == jres["per_class"].keys()
-    with pytest.raises(NotImplementedError, match="A9"):
-        tce.run_coco_eval(tcoco.CocoDataset(second, img_dir), params, tcfg, mesh=object(),
-                          device="cpu")
+    # data-parallel over a world of one: the evaluator sees the same rows
+    mrows = []
+    monkeypatch.setattr(tce, "DetectionEvaluator", Recorder(tce.DetectionEvaluator.base, mrows))
+    mesh = parallel.make_mesh(device="cpu")
+    try:
+        mres, _ = tce.run_coco_eval(tcoco.CocoDataset(second, img_dir), params, tcfg,
+                                    batch_size=3, mesh=mesh, verbose=False, device="cpu")
+    finally:
+        dist.destroy_process_group()
+    assert abs(mres["mAP"] - jres["mAP"]) <= 1e-6
+    assert len(mrows) == len(trows)
+    for got, want in zip(mrows, trows):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)

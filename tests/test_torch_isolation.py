@@ -7,7 +7,8 @@
   card's machine has no ``cv2`` and no ``h5py``): the h5 loader and the
   decoder's Pillow branch import them inside the function that needs them.
 - Entry points default to the card: with no card they raise instead of
-  running on the CPU; ``device="cpu"`` runs on the CPU.
+  running on the CPU (``parallel.initialize_multihost`` and ``make_mesh``
+  too, before starting a process group); ``device="cpu"`` runs on the CPU.
 - Unported options raise instead of falling back: the int8 path serves
   but does not train, and a flax collection the port does not know is
   refused (bias correction's ``stats`` is ported and crosses over).
@@ -22,8 +23,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
-from objectdetection_torch import convert, detector
+from objectdetection_torch import convert, detector, parallel
 from objectdetection_torch.config import SHAPES_CONFIG
 
 torch.set_num_threads(1)
@@ -133,6 +135,11 @@ def test_default_device_is_the_card():
         detector.make_infer_fn(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        parallel.initialize_multihost()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        parallel.make_mesh()
+    assert not dist.is_initialized()
     assert detector.make_infer_fn(cfg, device="cpu") is not None
 
 

@@ -419,6 +419,39 @@ def test_kernel_codes_are_exact():
     assert torch.equal(kernel_codes(codes), codes.float())
 
 
+def test_device_ms_profiles_an_empty_window_once_more(monkeypatch):
+    """A profiled window with no kernel record is taken again; two empty
+    windows raise."""
+    from types import SimpleNamespace
+
+    cuda = torch.autograd.DeviceType.CUDA
+    windows = []
+
+    class Profile:
+        def __init__(self, **kw):
+            self.events = windows.pop(0)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return self.events
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    calls = []
+    kernel = SimpleNamespace(key="k", device_type=cuda, count=4, self_device_time_total=8000.0)
+    windows[:] = [[], [kernel]]
+    assert common.device_ms(lambda: calls.append(1), reps=4) == pytest.approx(2.0)
+    assert len(calls) == 1 + 4 + 4  # a warm-up call and two windows
+    windows[:] = [[], []]
+    with pytest.raises(RuntimeError, match="no device time"):
+        common.device_ms(lambda: None, reps=4)
+
+
 def test_per_call_ms_survives_a_lost_record():
     """The profiler can drop a kernel record; the device time a call keeps
     the mean of the records it has, times the launches a call makes."""
