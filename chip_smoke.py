@@ -150,19 +150,51 @@ and prints no result:
    ``shard_state_tp(min_dim=512)`` holds ``mrcnn_class_conv1`` as [512,
    12544] a rank, and two steps' ``total_loss`` equal the replicated step's
    within rtol 1e-4. ms a batch and a step, the gradient all-reduce and
-   peak memory per rank are printed with the card's name and power limit.
+   peak memory per rank are printed with the card's name and power limit;
+13. the ``bench`` entry point (``objectdetection_torch/bench.py``) and
+   ``remat_backbone``, each path driven with the launch counters set to 0
+   just before it and read just after (per batch: NMS twice, ROIAlign
+   twice with masks or once without, in the int8 epilogues on the int8
+   path, 29 fused blocks on the fused path; per calibration chunk NMS and
+   the float ROIAlign at both stages once): (a) ``bench.main`` at its
+   defaults (int8 per-channel, batch 96, R101 1024², masks) with ``--iters
+   2 --warmup 1`` and an artifact directory: its one stdout line is the
+   JSON it returns, with ``bench.py``'s keys and ``config``
+   ``int8_ptq_pc_b96``; a second call on that directory loads the artifact,
+   calibrates nothing, and the state it loads equals the state the first
+   served, leaf for leaf; (b) ``--no-int8``, (c) ``--fused-bottleneck
+   --no-per-channel`` and (d) ``--no-masks --no-int8`` (through
+   ``cli.main(["bench", ...])``), each at batch 8; in (a)-(d) every NMS,
+   ROIAlign and fused-block call of the last (profiled) batch and of the
+   first calibration chunk is held against its plain version on its own
+   inputs (bit-equal; bf16 ROIAlign within ``bf16_tolerance``), and the
+   largest gap goes into the kernel line's ``max_abs_err``;
+   (e) ``python -m objectdetection_torch.bench --batch 2`` as a
+   subprocess, its last stdout line JSON; (f) ``cli train-coco --steps 3
+   --batch 8`` on 10(c)'s mini COCO without and with ``--remat`` (the peak
+   with remat lower; ms a step, the loop's waits for its loader), one f32
+   step at COCO_CONFIG on phase 6's batch and noise (TF32 off, cuDNN
+   deterministic) with and without ``remat_backbone`` (targets and losses
+   identical, every gradient leaf and the updated parameters within the
+   bound of 6(a)), then that step's losses and gradients timed warm twice
+   a side, alternating (the peak with remat lower), and one profiled bf16
+   step each (wall, device busy, kernels). images/s, calibration seconds,
+   peak memory and busy share are printed with the card's name and power
+   limit.
 
 The line before the last is the kernel table as JSON (launches counted on
 the path that runs each kernel: the training paths of phases 6 and 12 and
 phase 12's inference paths for the four of phases 2–6, the int8 serving paths for the fused block and the
-int8 ROIAlign, the probes' entry points for the three probe kernels; phase
-11's launches are checked and logged, not tabled); the
-last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+int8 ROIAlign, the probes' entry points for the three probe kernels, and
+phase 13's paths for the six kernels they run; phase 11's launches are
+checked and logged, not tabled); the last line is ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
@@ -2432,32 +2464,62 @@ FAMILY_STEPS = 3  # training steps of each family in phase 11
 LOSS_RTOL = 1e-6
 
 
+# the wrappers recorded_inputs can record: kind -> (module of ops/, wrapper,
+# plain version)
+RECORDABLE = {
+    "nms": ("nms", "suppress", "suppress_plain"),
+    "anchor_match": ("anchor_match", "anchor_match", "anchor_match_plain"),
+    "roi_align": ("roi_align", "batched_multilevel_roi_align",
+                  "batched_multilevel_roi_align_plain"),
+    "fused_block": ("fused_block", "fused_identity_block_int8",
+                    "fused_identity_block_int8_plain"),
+}
+
+
 @contextlib.contextmanager
-def recorded_inputs(calls):
-    """Record (name, args) of every NMS and anchor-match wrapper call, then
-    launch as usual: the kernels are checked on the main path's own inputs."""
-    from objectdetection_torch.ops import anchor_match, nms
+def recorded_inputs(calls, kinds=("nms", "anchor_match"), armed=lambda: True):
+    """Launch as usual, and append (kind, args, a copy of the output) of
+    every call of the ``kinds``' wrappers made while ``armed()``; args are
+    positional, defaults filled in. The kernels are then checked on the main
+    path's own inputs."""
+    import importlib
+    import inspect
 
-    saved = nms.suppress, anchor_match.anchor_match
+    import torch
 
-    def suppress(boxes, class_ids, iou_threshold, budget=None):
-        calls.append(("nms", (boxes, class_ids, iou_threshold, budget)))
-        return saved[0](boxes, class_ids, iou_threshold, budget)
+    def copy(out):
+        if isinstance(out, torch.Tensor):
+            return out.clone()
+        return type(out)(*map(copy, out))  # anchor_match's named tuple
 
-    def match(anchors, gt_boxes, gt_valid):
-        calls.append(("anchor_match", (anchors, gt_boxes, gt_valid)))
-        return saved[1](anchors, gt_boxes, gt_valid)
+    def wrap(kind, fn):
+        sig = inspect.signature(fn)
 
-    nms.suppress, anchor_match.anchor_match = suppress, match
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if armed():
+                bound = sig.bind(*args, **kwargs)
+                bound.apply_defaults()
+                calls.append((kind, tuple(bound.arguments.values()), copy(out)))
+            return out
+        return call
+
+    saved = []
+    for kind in kinds:
+        module, name, _ = RECORDABLE[kind]
+        mod = importlib.import_module(f"objectdetection_torch.ops.{module}")
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, wrap(kind, saved[-1][2]))
     try:
         yield
     finally:
-        nms.suppress, anchor_match.anchor_match = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
-def profiled_ms(fn, top: int = 6):
-    """(host wall ms, device busy ms) of one call of ``fn`` under the
-    profiler; logs its ``top`` largest device kernels."""
+def profiled_ms(fn, top: int = 6, name: str = "phase 11"):
+    """(host wall ms, device busy ms, device kernels) of one call of ``fn``
+    under the profiler; logs its ``top`` largest device kernels."""
     import torch
 
     torch.cuda.synchronize()
@@ -2469,11 +2531,11 @@ def profiled_ms(fn, top: int = 6):
         wall = (time.perf_counter() - t0) * 1e3
     busy = busy_ms(prof)
     if not busy > 0:
-        fail("phase 11: the profiler saw no device time")
+        fail(f"{name}: the profiler saw no device time")
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:80]}")
-    return wall, busy
+    return wall, busy, sum(e.count for e in events)
 
 
 def driven(name, fn, want, tally=None):
@@ -2627,7 +2689,7 @@ def train_family(name, step, state, batches, card, want):
         nonlocal state
         state, _ = step(state, batches[0])
 
-    wall, busy = profiled_ms(one)
+    wall, busy, _ = profiled_ms(one)
     log(f"{name} training: {FAMILY_STEPS} steps, {ms:.1f} ms a step (host wall); launches "
         f"{want} a step; peak memory {peak:.2f} GiB; profiled step wall {wall:.1f} ms, device "
         f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%); total_loss "
@@ -2645,7 +2707,7 @@ def check_recorded(calls, card):
     from objectdetection_torch.ops import anchor_match, nms
 
     groups = {}
-    for kind, args in calls:
+    for kind, args, _ in calls:
         key = (kind,) + tuple(tuple(a.shape) if hasattr(a, "shape") else a for a in args)
         groups.setdefault(key, []).append(args)
     if {key[0] for key in groups} != {"nms", "anchor_match"}:
@@ -2716,7 +2778,7 @@ def frcnn_phase(device, card, calls):
                 fail(f"faster rcnn {label}: {k} not finite")
         h, w = fr.feature_shape(cfg.image_shape)
         ms = time_host_ms(lambda: infer(params, batch.images), REPS)
-        wall, busy = profiled_ms(lambda: infer(params, batch.images))
+        wall, busy, _ = profiled_ms(lambda: infer(params, batch.images))
         log(f"faster rcnn {label} ({cfg.num_classes} classes, f32, B={BATCH}): {h * w * 9} "
             f"anchors, {int(outputs['proposals_valid'].sum())} proposals, "
             f"{int(det.valid.sum())} detections; first batch {first:.1f} ms, {ms:.1f} ms a "
@@ -2766,7 +2828,7 @@ def retinanet_phase(device, card, calls):
             torch.isfinite(det).all()):
         fail(f"retinanet detections: shape {tuple(det.shape)} or not finite")
     ms = time_host_ms(lambda: infer(params, batch.images), REPS)
-    wall, busy = profiled_ms(lambda: infer(params, batch.images))
+    wall, busy, _ = profiled_ms(lambda: infer(params, batch.images))
     log(f"retinanet (R101-FPN 1024² bf16, B={BATCH}): {int((det[..., 5] > 0).sum())} "
         f"detections; first batch {first:.1f} ms, {ms:.1f} ms a batch; profiled batch wall "
         f"{wall:.1f} ms, device busy {busy:.1f} ms ({100 * busy / wall:.1f}%); launches NMS 1 "
@@ -3314,6 +3376,394 @@ def parallel_phase(params, card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 13
+
+# (name, bench's arguments, the command that runs them) of 13(b)-(d), each
+# at batch 8 with (a)'s timing; (d) goes through the CLI's hand-off
+BENCH_RECIPES = (
+    ("13(b) bf16", ["--no-int8"], "bench"),
+    ("13(c) int8-fused", ["--fused-bottleneck", "--no-per-channel", "--quant-cache", "off"],
+     "bench"),
+    ("13(d) bf16 boxes", ["--no-masks", "--no-int8"], "odtorch bench"),
+)
+BENCH_TIMING = ["--iters", "2", "--warmup", "1"]
+
+
+def bench_launches(argv, calibrated: bool, recorded: bool = False):
+    """The kernel launches of one ``bench.main(argv)`` on the card: the
+    batches it runs (the first call, the warm-up, t(1), t(1 + iters) and
+    the profiled call), each with NMS twice, ROIAlign twice with masks
+    (int8 epilogues on the int8 path) or once without, 29 fused blocks on
+    the fused path; and with ``calibrated``, each calibration chunk's
+    float forward (NMS and ROIAlign at both stages once). With
+    ``recorded``, those of one batch and one chunk: the calls
+    :func:`run_bench` holds against the plain versions."""
+    from objectdetection_torch import bench
+
+    args = bench.build_parser().parse_args(argv)
+    cfg = bench.bench_config(args)
+    batches = 1 if recorded else 4 + args.warmup + args.iters
+    chunks = 0 if not calibrated else 1 if recorded else -(-args.batch
+                                                         // max(1, args.batch // 16))
+    stages = 1 if args.no_masks else 2
+    want = dict.fromkeys(("nms", "roi_align", "roi_align_int8", "fused_block", "anchor_match",
+                          "roi_align_backward"), 0)
+    want["nms"] = 2 * batches + chunks
+    want["roi_align_int8" if args.int8 else "roi_align"] = stages * batches
+    want["roi_align"] += 2 * chunks
+    if cfg.fused_bottleneck:
+        want["fused_block"] = 29 * batches
+    return want
+
+
+def nth_call_armed(fn, nth: int, flag):
+    """``fn``, with ``flag[0]`` true during its ``nth`` call (from 0) only."""
+    count = itertools.count()
+
+    def call(*args, **kwargs):
+        flag[0] = next(count) == nth
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            flag[0] = False
+    return call
+
+
+@contextlib.contextmanager
+def patched(owner, name, make):
+    """``owner.name`` replaced by ``make(the original)`` inside the block."""
+    real = getattr(owner, name)
+    setattr(owner, name, make(real))
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def roi_align_plain_by_rois(args, rois: int = 250):
+    """The plain ROIAlign of a recorded call, ``rois`` ROIs an image at a
+    time: a ROI's samples depend on its own box and the whole table only, so
+    the pieces equal the whole call's rows bit for bit, without the f32
+    gathers of 96 images' ROIs at once."""
+    import torch
+
+    from objectdetection_torch.ops import roi_align
+
+    feats, boxes, image, crop, out_quant, in_scale = args
+    return torch.cat([roi_align.batched_multilevel_roi_align_plain(
+        feats, boxes[:, i:i + rois], image, crop, out_quant, in_scale)
+        for i in range(0, boxes.shape[1], rois)], 1)
+
+
+def check_against_plain(name, calls):
+    """Every call that recorded_inputs recorded against its plain version on
+    the same inputs: NMS, the fused block, f32 ROIAlign and ROIAlign's int8
+    epilogues bit-equal (phases 2, 3 and 7), bf16 ROIAlign within
+    ``bf16_tolerance`` (phase 3). Logs each shape; returns {kernel row:
+    [calls, max |kernel - plain|]}."""
+    import torch
+
+    from objectdetection_torch.ops import fused_block, nms, roi_align
+
+    rows, groups, tols = {}, {}, {}
+    with torch.inference_mode():
+        for kind, args, got in calls:
+            if kind == "roi_align":
+                feats, boxes, _, crop, out_quant, in_scale = args
+                row = "roi_align" if out_quant is None and in_scale is None else "roi_align_int8"
+                want = roi_align_plain_by_rois(args)
+                shape = (f"B={boxes.shape[0]} R={boxes.shape[1]} {crop[0]}x{crop[1]} "
+                         f"{str(feats[0].dtype)[6:]} in, {str(got.dtype)[6:]} out")
+            elif kind == "nms":
+                row, want = "nms", nms.suppress_plain(*args)
+                shape = f"B={args[0].shape[0]} N={args[0].shape[1]} -> {args[3]}"
+            else:
+                row, want = "fused_block", fused_block.fused_identity_block_int8_plain(*args)
+                b, h, w, c3 = args[0].shape
+                shape = f"B={b} {h}x{w} C3={c3}"
+            if row == "roi_align" and got.dtype == torch.bfloat16:
+                err = float((got.float() - want.float()).abs().max())
+                tol = roi_align.bf16_tolerance(feats)
+                if not err <= tol:
+                    fail(f"{name}: roi_align {shape}: max |kernel - plain| {err} > {tol}")
+                tols[shape] = min(tols.get(shape, tol), tol)
+            elif got.dtype == want.dtype and torch.equal(got, want):
+                err = 0.0
+            else:
+                fail(f"{name}: {row} {shape}: kernel not bit-equal to plain")
+            for rec in (rows.setdefault(row, [0, 0.0]), groups.setdefault((row, shape), [0, 0.0])):
+                rec[0] += 1
+                rec[1] = max(rec[1], err)
+    for (row, shape), (n, err) in groups.items():
+        log(f"  {row} {shape}: kernel == plain on {n} calls" if err == 0 else
+            f"  {row} {shape}: max |kernel - plain| {err:.3g} <= tolerance {tols[shape]:.3g} "
+            f"(2^-5 of the largest feature) on {n} calls")
+    return rows
+
+
+def run_bench(name, argv, calibrated, card, tally, errs, states=None, command="bench"):
+    """``bench.main(argv)`` (``cli.main(["bench", *argv])`` for ``command``
+    'odtorch bench') with the launch counters set to 0 just before and
+    checked just after; its stdout must be the one JSON line it returns.
+    The kernel calls of the last batch (the profiled one, after the timed
+    runs' peak memory is read) and of the first calibration chunk are
+    recorded and held against the plain versions; their largest errors go
+    into ``errs``. Returns (the line, bench's stderr)."""
+    import io
+
+    from objectdetection_torch import bench, cli, detector, quant
+
+    out, err = io.StringIO(), io.StringIO()
+    want = bench_launches(argv, calibrated)
+    args = bench.build_parser().parse_args(argv)
+    batches = 4 + args.warmup + args.iters  # the last is the profiled call
+    flag, calls = [False], []
+    entry = {"bench": lambda: bench.main(argv), "odtorch bench": lambda: cli.main(["bench"] + argv)}
+    keep = (lambda real: lambda *a: states.append(real(*a)) or states[-1]) if states is not None \
+        else (lambda real: real)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(bench, "serving_state", keep))
+        stack.enter_context(patched(detector, "make_infer_fn", lambda real: lambda *a, **k:
+                                    nth_call_armed(real(*a, **k), batches - 1, flag)))
+        stack.enter_context(patched(quant, "_float_pipeline",
+                                    lambda real: nth_call_armed(real, 0, flag)))
+        stack.enter_context(recorded_inputs(calls, ("nms", "roi_align", "fused_block"),
+                                            lambda: flag[0]))
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            t0 = time.perf_counter()
+            line = driven(name, entry[command], want, tally)
+            wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    if len(lines) != 1 or json.loads(lines[0]) != line:
+        fail(f"{name}: stdout {lines!r}, want the one JSON line {line}")
+    want_keys = ["metric", "value", "unit", "vs_baseline", "config"]
+    if list(line) != want_keys or not line["value"] > 0:
+        fail(f"{name}: line {line}")
+    for text in err.getvalue().splitlines():
+        if "ptxas" not in text and text.strip():
+            log(f"  {text}")
+    log(f"{name}: `{command} {' '.join(argv)}` {line['value']} images/s ({line['config']}), "
+        f"command wall {wall:.1f} s; launches as expected [{card}]")
+    rows = check_against_plain(name, calls)
+    recorded = {k: v for k, v in bench_launches(argv, calibrated, recorded=True).items() if v}
+    if {k: n for k, (n, _) in rows.items()} != recorded:
+        fail(f"{name}: recorded {rows}, want the calls {recorded}")
+    for k, (_, e) in rows.items():
+        errs[k] = max(errs.get(k, 0.0), e)
+    return line, err.getvalue()
+
+
+def bench_phase(card, tally, errs):
+    """13(a)-(e): the ``bench`` entry point on the card."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = f"{tmp}/q"
+        states = []
+        argv = BENCH_TIMING + ["--quant-cache", cache]
+        line, err = run_bench("13(a) int8-default", argv, True, card, tally, errs, states)
+        if line["config"] != "int8_ptq_pc_b96" or "int8 artifact saved" not in err:
+            fail(f"13(a): config {line['config']}, artifact not saved: {err[-300:]}")
+        line, err = run_bench("13(a) again", ["--iters", "1", "--warmup", "0", "--quant-cache",
+                                              cache], False, card, tally, errs, states)
+        if "int8 artifact loaded from" not in err or "int8 calibration+freeze" in err:
+            fail(f"13(a) again: the artifact was not loaded, or it calibrated: {err[-300:]}")
+        saved, loaded = states
+        if set(saved) != set(loaded) or not all(torch.equal(saved[k], loaded[k])
+                                                for k in saved):
+            fail("13(a) again: the loaded state differs from the saved one")
+        log(f"13(a) again: the loaded state equals the saved one, {len(saved)} leaves "
+            f"({sum(v.dtype == torch.int8 for v in saved.values())} int8 kernels)")
+    del states, saved, loaded
+    for name, extra, command in BENCH_RECIPES:
+        argv = ["--batch", "8"] + BENCH_TIMING + extra
+        run_bench(name, argv, "--no-int8" not in extra, card, tally, errs, command=command)
+    torch.cuda.empty_cache()  # the command below is another process on the card
+
+    cmd = [sys.executable, "-m", "objectdetection_torch.bench", "--batch", "2", "--iters", "1",
+           "--warmup", "0", "--quant-cache", "off"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1]) if proc.returncode == 0 and lines else None
+    except json.JSONDecodeError:
+        line = None
+    if line is None or line.get("config") != "int8_ptq_pc_b2":
+        fail(f"13(e): `{' '.join(cmd[1:])}` exit {proc.returncode}, stdout {proc.stdout[-300:]!r}"
+             f", stderr {proc.stderr[-600:]!r}")
+    log(f"13(e): `python {' '.join(cmd[1:])}` exit 0 in {wall:.1f} s, last line {line}")
+
+
+def remat_training(card, tally):
+    """13(f) first part: ``train-coco --steps 3 --batch 8`` on 10(c)'s mini
+    COCO without and with ``--remat``."""
+    import tempfile
+
+    import torch
+
+    from objectdetection_torch import cli
+
+    want = {"nms": COCO_STEPS, "anchor_match": COCO_STEPS, "roi_align": COCO_STEPS,
+            "roi_align_backward": COCO_STEPS}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ann, _ = write_mini_coco(tmp)
+        for remat in (False, True):
+            argv = ["train-coco", ann, tmp, "--steps", str(COCO_STEPS), "--batch", "8",
+                    "--log-every", "100"] + (["--remat"] if remat else [])
+            torch.cuda.reset_peak_memory_stats()
+            state, record = driven(f"13(f) train-coco{' --remat' if remat else ''}",
+                                   lambda: cli.main(argv), want, tally)
+            check_train_record("13(f) train-coco", record, COCO_STEPS)
+            out[remat] = (after_first_ms(record, COCO_STEPS),
+                          torch.cuda.max_memory_allocated() / 2**30,
+                          [round(m["total_loss"], 4) for m in record["metrics"]],
+                          [round(w, 1) for w in record["wait_ms"][1:]])
+    (ms0, peak0, loss0, wait0), (ms1, peak1, loss1, wait1) = out[False], out[True]
+    if not peak1 < peak0:
+        fail(f"13(f): train-coco --remat peaks at {peak1:.2f} GiB, without {peak0:.2f}")
+    log(f"13(f) train-coco --steps {COCO_STEPS} --batch 8 (R101 1024² bf16, boxes only): "
+        f"{ms0:.1f} ms a step after the first (the loop waited {wait0} ms for the loader), "
+        f"peak {peak0:.2f} GiB; with --remat {ms1:.1f} ms ({100 * (ms1 / ms0 - 1):+.1f}%; "
+        f"waited {wait1}), peak {peak1:.2f} GiB ({100 * (peak1 / peak0 - 1):+.1f}%); "
+        f"total_loss {loss0} and {loss1} [{card}]")
+
+
+def remat_f32(params, card, tally):
+    """13(f) second part: one f32 step at COCO_CONFIG on phase 6's batch and
+    noise (TF32 off, cuDNN deterministic) with and without
+    ``remat_backbone``: targets identical, losses equal, every gradient leaf
+    and the updated parameters within 6(a)'s bound. Then, both sides warm,
+    the losses and gradients timed twice a side in the order with, without,
+    without, with, each with its peak above the memory live before it."""
+    import torch
+
+    from objectdetection_torch import detector, optim
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.convert import split_collections
+
+    device = torch.device("cuda", 0)
+    p, stats, _ = split_collections(params)
+    batch = train_batch(COCO_CONFIG, device)
+    base = COCO_CONFIG.replace(compute_dtype="float32")
+    noise = detector.draw_noise(base, batch, torch.Generator(device=device).manual_seed(2))
+    runs, times, peaks = {}, {False: [], True: []}, {False: [], True: []}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            cfg = base.replace(remat_backbone=remat)
+            parts, targets, grads = driven(
+                f"13(f) f32 losses and gradients{' (remat)' if remat else ''}",
+                lambda: losses_and_grads(p, stats, batch, cfg, noise), STEP_LAUNCHES, tally)
+            state, _ = driven(
+                f"13(f) f32 make_train_step{' (remat)' if remat else ''}",
+                lambda: detector.make_train_step(cfg, with_masks=True)(
+                    detector.TrainState(p, stats, optim.init(p), 0), batch, noise=noise),
+                STEP_LAUNCHES, tally)
+            runs[remat] = (parts, targets, grads, state)
+        for remat in (True, False, False, True):
+            cfg = base.replace(remat_backbone=remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            live = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            losses_and_grads(p, stats, batch, cfg, noise)
+            torch.cuda.synchronize()
+            times[remat].append((time.perf_counter() - t0) * 1e3)
+            peaks[remat].append((torch.cuda.max_memory_allocated() - live) / 2**30)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (parts0, tgt0, grads0, st0), (parts1, tgt1, grads1, st1) = runs[False], runs[True]
+    for name, a, b in (("rpn target_class", tgt0[0].target_class, tgt1[0].target_class),
+                       ("proposals", tgt0[1], tgt1[1]), ("sampled rois", tgt0[2].rois,
+                                                         tgt1[2].rois),
+                       ("target_class_ids", tgt0[2].target_class_ids,
+                        tgt1[2].target_class_ids),
+                       ("target masks", tgt0[2].target_masks, tgt1[2].target_masks)):
+        if not torch.equal(a, b):
+            fail(f"13(f) f32: {name} differ with remat")
+    for k, v in parts0.items():
+        if not torch.equal(parts1[k], v):
+            fail(f"13(f) f32: {k} {float(parts1[k])} with remat, {float(v)} without")
+    worst, worst_name, n_equal = 0.0, "", 0
+    for k, g0 in grads0.items():
+        g1 = grads1[k]
+        n_equal += torch.equal(g0, g1)
+        ref = float(torch.linalg.vector_norm(g0))
+        err = float(torch.linalg.vector_norm(g1 - g0))
+        rel = err / ref if ref > 0 else (0.0 if err == 0 else float("inf"))
+        if rel > worst:
+            worst, worst_name = rel, k
+        if not rel <= GRAD_REL:
+            fail(f"13(f) f32: the gradient of {k} moves {rel:.3g} with remat")
+    move = max(float(torch.linalg.vector_norm(st1.params[k] - st0.params[k]))
+               / max(float(torch.linalg.vector_norm(st0.params[k] - p[k])), 1e-30)
+               for k in p)
+    if not move <= GRAD_REL:
+        fail(f"13(f) f32: the updated parameters lie {move:.3g} of their move apart")
+    if not max(peaks[True]) < min(peaks[False]):
+        fail(f"13(f) f32: the step peaks at {peaks[True]} GiB with remat, {peaks[False]} "
+             "without")
+    ms = {k: ", ".join(f"{t:.1f}" for t in v) for k, v in times.items()}
+    pk = {k: ", ".join(f"{g:.2f}" for g in v) for k, v in peaks.items()}
+    log(f"13(f) f32 step (R101 1024² B={BATCH}, masks, TF32 off, cuDNN deterministic): targets "
+        f"and losses identical with and without remat; {n_equal} of {len(grads0)} gradient "
+        f"leaves bit-equal, largest gap {worst:.3g} of the leaf's norm ({worst_name or 'none'});"
+        f" updated parameters within {move:.3g} of their move; losses and gradients, both sides "
+        f"warm (with, without, without, with): without remat {ms[False]} ms, peak {pk[False]} "
+        f"GiB above the live memory; with {ms[True]} ms, peak {pk[True]} GiB [{card}]")
+
+
+def remat_profile(params, card, tally):
+    """13(f) last: one bf16 step of make_train_step at COCO_CONFIG on phase
+    6's batch, with and without ``remat_backbone``, profiled after a warm
+    step of each: host wall, device busy, kernel launches."""
+    import torch
+
+    from objectdetection_torch import detector, optim
+    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.convert import split_collections
+
+    device = torch.device("cuda", 0)
+    p, stats, _ = split_collections(params)
+    batch = train_batch(COCO_CONFIG, device)
+    state = detector.TrainState(p, stats, optim.init(p), 0)
+    steps = {remat: detector.make_train_step(COCO_CONFIG.replace(remat_backbone=remat),
+                                             with_masks=True) for remat in (False, True)}
+    one = lambda step: step(state, batch, torch.Generator(device).manual_seed(1))
+    for step in steps.values():
+        one(step)
+    parts = []
+    for remat, step in steps.items():
+        name = f"13(f) profiled bf16 step{' (remat)' if remat else ''}"
+        wall, busy, kernels = driven(name, lambda: profiled_ms(lambda: one(step), name=name),
+                                     STEP_LAUNCHES, tally)
+        parts.append(f"{'with' if remat else 'without'} remat: wall {wall:.1f} ms, device busy "
+                     f"{busy:.1f} ms ({100 * busy / wall:.1f}%), {kernels} kernels")
+    log(f"13(f) profiled bf16 step (R101 1024² B={BATCH}, masks): " + "; ".join(parts)
+        + f" [{card}]")
+
+
+def bench_and_remat_phase(params, card):
+    """13: the ``bench`` entry point (a)-(e) and ``remat_backbone`` (f).
+    Returns the kernels' launches of its paths as the counters read them,
+    and each kernel's largest |kernel - plain| over the calls it recorded."""
+    t0 = time.perf_counter()
+    tally, errs = {}, {}
+    bench_phase(card, tally, errs)
+    remat_training(card, tally)
+    remat_f32(params, card, tally)
+    remat_profile(params, card, tally)
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s; launches {tally}; recorded calls' largest "
+        f"|kernel - plain| {errs}")
+    return tally, errs
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3351,6 +3801,9 @@ def main() -> None:
     families_phase(device, card)
     for k, v in parallel_phase(params, card).items():
         launches[k] += v
+    bench_launches_, bench_errs = bench_and_remat_phase(params, card)
+    for k, v in bench_launches_.items():
+        launches[k] += v
 
     kernels = []
     for name, rec, source, replaces in (
@@ -3380,7 +3833,7 @@ def main() -> None:
             "source": source,
             "replaces": replaces,
             "launches": launches[name],
-            "max_abs_err": rec["max_abs_err"],
+            "max_abs_err": max(rec["max_abs_err"], bench_errs.get(name, 0.0)),
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec.get("bound_ms", max(bytes_ms, ops_ms)),

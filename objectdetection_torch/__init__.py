@@ -13,6 +13,8 @@ Three families on an NVIDIA Hopper card, each served and trained:
 Mask R-CNN also runs data- and tensor-parallel on ``torch.distributed``
 (``parallel``: one process a device, NCCL on the card), and ``cli
 eval-coco --data-parallel`` evaluates that way.
+``bench`` (``python -m objectdetection_torch.bench``, ``cli bench``) is
+the root ``bench.py``'s inference-throughput recipe on the card.
 
 The NMS, ROIAlign, anchor-matching and fused int8 kernels are hand-written
 CUDA under ``csrc/``, built on first use (``ops/cuda_build.py``). The

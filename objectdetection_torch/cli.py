@@ -7,26 +7,29 @@
     python -m objectdetection_torch.cli eval-coco ANNOTATIONS IMAGE_DIR [...]
     python -m objectdetection_torch.cli quantize --out DIR [--config shapes|coco] [...]
     python -m objectdetection_torch.cli serve [--port 8000] [--quant DIR]
+    python -m objectdetection_torch.cli bench [--batch 96] [--no-int8] [...]
 
 (or ``odtorch ...`` once the package is installed). The flags are those of
 the JAX package's ``odtpu``, plus ``--device`` (default ``cuda``; the
-commands raise without a card unless given ``--device cpu``), with three
+commands raise without a card unless given ``--device cpu``), with two
 differences: ``quantize`` takes no ``--train-steps``, ``--lr`` or
 ``--lr-schedule`` (JAX reads them only to rebuild the optimizer state its
 checkpoint restore needs, and a port checkpoint carries its own);
-``train --resume`` and ``quantize --ckpt`` read the port's own checkpoints;
-``train-coco --remat`` is read and ignored (it only trades memory in JAX).
-``eval-coco --data-parallel`` shards each batch over the processes of a
-launch (``parallel.py``): ``torchrun --nproc_per_node N -m
-objectdetection_torch.cli eval-coco ... --data-parallel`` spans N ranks
-(NCCL, one card each); a plain run is a world of one. Each
+``train --resume`` and ``quantize --ckpt`` read the port's own checkpoints.
+``bench`` hands the rest of its line to :func:`objectdetection_torch.bench.main`
+(``python -m objectdetection_torch.bench``), which takes ``bench.py``'s
+flags and ``--device``. ``train-coco --remat`` recomputes the backbone's
+blocks in the backward pass (``remat_backbone``). ``eval-coco
+--data-parallel`` shards each batch over the processes of a launch
+(``parallel.py``): ``torchrun --nproc_per_node N -m objectdetection_torch.cli
+eval-coco ... --data-parallel`` spans N ranks (NCCL, one card each); a plain
+run is a world of one. Each
 command is a function of a config and a device (:func:`run_train`,
 :func:`run_demo`, :func:`run_infer`, :func:`run_train_coco`,
 :func:`run_eval_coco`, :func:`run_quantize`) wrapped by its ``cmd_*``,
 which fixes the config as JAX's command does (``SHAPES_CONFIG`` for
 ``demo`` and ``train``, ``COCO_CONFIG`` for the rest); :func:`main` returns
-what the command's function returns. ``bench`` is not ported: it waits for
-the port's benchmark.
+what the command's function returns.
 """
 
 from __future__ import annotations
@@ -423,8 +426,9 @@ def run_train_coco(annotations: str, image_dir: str, base=None, steps: int = 100
     with the dataset's class count and the run's optimizer settings; masks
     through ``pycocotools`` where it is installed (else boxes only, with
     JAX's notice). Batches of ``batch`` images drawn by one
-    ``RandomState(seed)`` in turn. ``remat`` is read and ignored (a memory
-    option of the JAX program). Returns (final state, the run's record, as
+    ``RandomState(seed)`` in turn. ``remat`` sets ``remat_backbone``: the
+    backbone's blocks are recomputed in the backward pass, which trades
+    compute for training memory. Returns (final state, the run's record, as
     :func:`run_train`'s)."""
     import numpy as np
 
@@ -558,9 +562,9 @@ def cmd_serve(args):
 
 
 def cmd_bench(args):
-    raise SystemExit(
-        "bench is not ported: the port's benchmark (ROADMAP A1) is defined with its "
-        "BENCHMARK.json; chip_smoke.py measures the paths on the card meanwhile")
+    from objectdetection_torch import bench
+
+    return bench.main(args.rest)
 
 
 def main(argv=None):
@@ -620,7 +624,8 @@ def main(argv=None):
     tc.add_argument("--lr-schedule", choices=["constant", "warmup_cosine"],
                     default="warmup_cosine")
     tc.add_argument("--remat", action="store_true",
-                    help="read and ignored (a memory option of the JAX program)")
+                    help="recompute the backbone's blocks in the backward pass "
+                    "(remat_backbone: less training memory, more compute)")
     tc.add_argument("--seed", type=int, default=0)
     tc.add_argument("--log-every", type=int, default=20)
     tc.add_argument("--ckpt", default="")
@@ -668,7 +673,11 @@ def main(argv=None):
     add_device(s)
     s.set_defaults(fn=cmd_serve)
 
-    b = sub.add_parser("bench", help="not ported: waits for the port's benchmark")
+    # the rest of the line is bench's own (its --help too): with "+" as the
+    # only prefix, a leading "--batch" reaches REMAINDER instead of being
+    # refused as an unknown option of this parser
+    b = sub.add_parser("bench", help="inference throughput (objectdetection_torch.bench)",
+                       prefix_chars="+", add_help=False)
     b.add_argument("rest", nargs=argparse.REMAINDER)
     b.set_defaults(fn=cmd_bench)
 

@@ -6,9 +6,11 @@ Configs are frozen dataclasses, specialized with :meth:`DetectorConfig.replace`.
 
 Fields that only steer the TPU program's layout (``conv1_space_to_depth``,
 ``s2d_stage2``, ``int8_dot_lowering``, ``align_step_rois``,
-``align_skip_chunks``, ``pallas_roi_align``, ``remat_backbone``,
-``proposal_decode_all``) are read and ignored by the port: they do not change
-the numbers. ``use_approx_topk`` is treated as exact top-k. The int8 fields
+``align_skip_chunks``, ``pallas_roi_align``, ``proposal_decode_all``) are
+read and ignored by the port: they do not change the numbers.
+``remat_backbone`` recomputes the Mask R-CNN backbone's blocks in the
+backward pass (training memory against compute; the numbers do not
+change). ``use_approx_topk`` is treated as exact top-k. The int8 fields
 take effect with ``quantized_inference`` (the int8 serving path,
 :mod:`objectdetection_torch.quant`), which serves but does not train
 (:func:`objectdetection_torch.detector.check_supported`).
@@ -90,7 +92,7 @@ class DetectorConfig:
     # --- numerics / execution ---
     compute_dtype: str = "bfloat16"  # backbone/head conv compute dtype
     conv1_space_to_depth: bool = False  # TPU layout only: ignored
-    remat_backbone: bool = False  # training memory option: ignored
+    remat_backbone: bool = False  # recompute the backbone's blocks in the backward
     use_approx_topk: bool = True  # the port always selects exactly
     approx_topk_recall_target: float = 0.9
     quantized_inference: bool = False

@@ -18,6 +18,11 @@ whose shapes pass ``fused_block_supported`` run as one kernel with
 ``bf16_stages`` serve whole stages in the compute dtype with dequantized
 int8 kernels. Inside ``quant.calibration()`` every block runs the float
 forward and records its ranges instead.
+
+With ``remat`` (the Mask R-CNN family's ``remat_backbone``) each bottleneck
+block run with gradients on is rematerialized: its activations are freed
+after the forward and recomputed in the backward pass, as flax's
+``nn.remat(BottleneckBlock)`` does; the stem is not.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from objectdetection_torch import quant as Q
 from objectdetection_torch.ops import fused_block
@@ -206,16 +213,35 @@ class BottleneckBlock(nn.Module):
         return out
 
 
+def rematerialized(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` with its activations recomputed in the backward pass.
+
+    The block's tensors enter the checkpoint as inputs, read while the
+    caller's ``functional_call`` binds them: the training step takes its
+    gradients after that binding is undone, when the module itself holds
+    the meta tensors it was built with again, so a recompute through the
+    module's own attributes would read those.
+    """
+    names, tensors = zip(*block.state_dict(keep_vars=True).items())
+
+    def run(inp, *bound):
+        return functional_call(block, dict(zip(names, bound)), (inp,))
+
+    return checkpoint(run, x, *tensors, use_reentrant=False)
+
+
 class ResNetBottomUp(nn.Module):
     """C2..C5 feature extractor (stem + 4 bottleneck stages)."""
 
-    def __init__(self, model: str = "resnet101", cin: int = 3, quant: Optional[Quant] = None):
+    def __init__(self, model: str = "resnet101", cin: int = 3, quant: Optional[Quant] = None,
+                 remat: bool = False):
         super().__init__()
         if model not in RESNET_STAGE4_BLOCKS:
             raise ValueError(f"unknown backbone {model!r}")
         if quant is not None and not set(quant.bf16_stages) <= {2, 3, 4, 5}:
             raise ValueError(f"bf16_stages {quant.bf16_stages}: stages are 2..5")
         self.quant = quant
+        self.remat = remat
         self.conv1 = make_conv(quant, cin, 64, 7, 2, padding=3, per_channel=False,
                                int8_compute=quant is not None and quant.int8_stem)
         self.bn_conv1 = FrozenBatchNorm(64)
@@ -255,10 +281,12 @@ class ResNetBottomUp(nn.Module):
                 Q._record(self.c1_out_scale, x, 1)
             elif 2 not in q.bf16_stages:  # enter the int8-carried stream
                 x = (Q.quantize_nchw(x, self.c1_out_scale), self.c1_out_scale)
+        remat = self.remat and torch.is_grad_enabled()
         outs = []
         for names in self.stages:
             for name in names:
-                x = self._modules[name](x)
+                block = self._modules[name]
+                x = rematerialized(block, x) if remat else block(x)
             outs.append(x)
         return tuple(outs)
 
@@ -275,10 +303,10 @@ class ResNetFPN(nn.Module):
     """
 
     def __init__(self, model: str = "resnet101", channels: int = 256, cin: int = 3,
-                 quant: Optional[Quant] = None):
+                 quant: Optional[Quant] = None, remat: bool = False):
         super().__init__()
         self.quant = quant
-        self.resnet = ResNetBottomUp(model, cin, quant)
+        self.resnet = ResNetBottomUp(model, cin, quant, remat)
         float_p2 = quant is not None and not quant.quantize_p2
         for name, c in (("fpn_c5p5", 2048), ("fpn_c4p4", 1024),
                         ("fpn_c3p3", 512), ("fpn_c2p2", 256)):

@@ -65,7 +65,8 @@ class MaskRCNN(nn.Module):
         cfg = config
         self.config = cfg
         c = cfg.fpn_channels
-        self.fpn = ResNetFPN(cfg.backbone, c, cfg.image_shape[2], quant_spec(cfg))
+        self.fpn = ResNetFPN(cfg.backbone, c, cfg.image_shape[2], quant_spec(cfg),
+                             remat=cfg.remat_backbone)
         self.rpn_model = RPNHead(cfg.num_anchors_per_location, cfg.rpn_anchor_stride, c,
                                  quant=quant_spec(cfg, cfg.quantize_rpn))
         self.mrcnn = BoxClassHead(cfg.num_classes, tuple(cfg.pool_shape), c,

@@ -459,18 +459,26 @@ def calibrate_variables(
             functional_call(model, state, (_float_pipeline, chunk, anchors, config), strict=True)
         return quant
 
+    # activation scales record in f32 whatever the state's dtype (JAX's
+    # maximum of a bf16 scale and an f32 absmax is f32); kernel_scale passes
+    # through as it is
+    def fresh(k, zero):
+        if k.endswith(".kernel_scale"):
+            return params[k].clone()
+        if zero:
+            return torch.zeros_like(params[k], dtype=torch.float32)
+        return params[k].to(torch.float32, copy=True)
+
     out = dict(params)
     if percentile is None:
-        quant = {k: params[k].clone() for k in keys}
+        quant = {k: fresh(k, False) for k in keys}
         for chunk in _chunks(images, b):
             quant = step(quant, chunk)
         out.update(quant)
         return out
     per_chunk = []
     for chunk in _chunks(images, b):
-        quant = {k: params[k].clone() if k.endswith(".kernel_scale")
-                 else torch.zeros_like(params[k]) for k in keys}
-        per_chunk.append(step(quant, chunk))
+        per_chunk.append(step({k: fresh(k, True) for k in keys}, chunk))
     if len(per_chunk) < 2:
         out.update(per_chunk[0])
         return out

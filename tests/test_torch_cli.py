@@ -20,8 +20,10 @@ At the small f32 config (R50, 64², ``detection_min_threshold=0``) on the CPU:
   config); the artifact serves the frozen state's answer. ``quantize``
   refuses JAX's optimizer flags; ``eval-coco --data-parallel`` launched
   plainly evaluates over a world of one and gives the evaluator the
-  single-device rows; ``bench`` says it is not ported; the commands default
-  to the card and raise without one.
+  single-device rows; ``bench`` hands the rest of its line, leading options
+  and ``--help`` included, to ``objectdetection_torch.bench.main`` and
+  returns its line, and without a card it is refused as every command is;
+  the commands default to the card and raise without one.
 - ``run_train`` for 3 steps against JAX's ``cmd_train`` (``SHAPES_CONFIG``
   patched to the small config with ``train_append_gt``, JAX's dataset at
   the config's size, both from the same weights, which the port resumes
@@ -40,7 +42,8 @@ At the small f32 config (R50, 64², ``detection_min_threshold=0``) on the CPU:
   the CPU: the card's ROIAlign gradient sums with atomics).
 - ``demo`` writes PNGs that decode at the image size; ``run_train_coco``
   trains boxes only with JAX's notice when ``--masks`` finds no
-  ``pycocotools``, and reads ``--remat`` without acting on it.
+  ``pycocotools``, and passes ``--remat`` on as ``remat_backbone``
+  (tests/test_torch_remat.py holds what that does).
 """
 
 import json
@@ -227,8 +230,9 @@ def test_main_commands_default_to_the_card(tmp_path):
 
 
 def test_eval_coco_data_parallel_and_bench_are_refused(tmp_path, monkeypatch):
-    # bench is refused; eval-coco --data-parallel, launched plainly, runs over
-    # a world of one and hands the evaluator what the single-device run does
+    # bench, like every command, is refused without a card; eval-coco
+    # --data-parallel, launched plainly, runs over a world of one and hands
+    # the evaluator what the single-device run does
     ann_file, root = tiny_coco(tmp_path)
     rows = []
     add = DetectionEvaluator.add_image
@@ -251,8 +255,20 @@ def test_eval_coco_data_parallel_and_bench_are_refused(tmp_path, monkeypatch):
     monkeypatch.setattr(cli, "run_eval_coco", lambda *a, **kw: seen.update(kw))
     cli.main(["eval-coco", "a.json", "imgs", "--data-parallel", "--device", "cpu"])
     assert seen["data_parallel"] is True
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main(["bench"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["bench", "--batch", "1"])
+
+
+def test_bench_hands_the_rest_of_the_line_to_bench_main(monkeypatch):
+    from objectdetection_torch import bench
+
+    seen = []
+    monkeypatch.setattr(bench, "main", lambda argv=None: seen.append(argv) or {"value": 1.0})
+    for argv in (["--batch", "8", "--no-int8", "--device", "cpu"], [], ["--help"],
+                 ["--quant-cache", "off", "-h"]):
+        assert cli.main(["bench", *argv]) == {"value": 1.0}
+        assert seen[-1] == argv
 
 
 # ---------------------------------------------------------------- training
@@ -464,8 +480,12 @@ def tiny_coco(tmp_path):
     return str(ann_file), str(root)
 
 
-def test_train_coco_boxes_only_without_pycocotools(tmp_path, capsys):
+def test_train_coco_boxes_only_without_pycocotools(tmp_path, capsys, monkeypatch):
     ann_file, root = tiny_coco(tmp_path)
+    configs = []
+    make_step = tdet.make_train_step
+    monkeypatch.setattr(tdet, "make_train_step",
+                        lambda cfg, **kw: configs.append(cfg) or make_step(cfg, **kw))
     state, rec = cli.run_train_coco(ann_file, root, base=TTRAIN, steps=2, batch=2,
                                     masks=True, remat=True, log_every=1,
                                     ckpt=str(tmp_path / "ck"), device="cpu")
@@ -475,3 +495,4 @@ def test_train_coco_boxes_only_without_pycocotools(tmp_path, capsys):
                for m in rec["metrics"])
     assert state.params["mrcnn.mrcnn_class_logits.weight"].shape[0] == 3  # BG + 2 classes
     assert (tmp_path / "ck" / "train_state.pt").exists()
+    assert [c.remat_backbone for c in configs] == [True]  # --remat reaches the step
