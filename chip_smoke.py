@@ -79,8 +79,10 @@ and prints no result:
    three PNGs in turn and two at once from two threads, each answer equal
    to ``infer_fn`` + ``unmold_detections`` called directly on the same
    state dict (integer boxes and class ids identical, scores to 4
-   decimals); (c) ``cli quantize --config coco --calib-images 2
-   --batch-size 1 --percentile 90`` writes an artifact, ``serve(quantized=)``
+   decimals), then one image as a PNG tagged with EXIF orientation 6 and,
+   turned upright, untagged: both unmolded at the upright shape and
+   answered as the direct call on the upright image; (c) ``cli quantize
+   --config coco --calib-images 2 --batch-size 1 --percentile 90`` writes an artifact, ``serve(quantized=)``
    answers the three PNGs identically to the frozen state dict still in
    memory; (d) ``cli infer`` with masks on one PNG: the ``*_det.png`` it
    writes decodes at the input's shape, ``paste_detection_masks`` gives
@@ -180,13 +182,33 @@ and prints no result:
    a side, alternating (the peak with remat lower), and one profiled bf16
    step each (wall, device busy, kernels). images/s, calibration seconds,
    peak memory and busy share are printed with the card's name and power
-   limit.
+   limit;
+14. the last slice, each path driven with the launch counters set to 0
+   just before it and read just after: (a) a seeded 333×500 PNG with an
+   ``eXIf`` chunk for each EXIF orientation 1-8, decoded with the C row
+   unfilter: each equal, bit for bit and in shape, to the untagged decode
+   turned by the tag's numpy flip or transpose (the server's part is in
+   9(b)); (b) ``cli train --steps 20 --batch 8 --masks --ckpt D``, then
+   ``tools/torch_int8_accuracy.py --ckpt D --images 16 --calib-images 8``
+   at its defaults (per tensor) and with ``--per-channel --percentile
+   90``: ``benchmarks/int8_accuracy.py``'s JSON keys, the float mAP@0.5
+   equal to ``cli.evaluate_on_shapes`` called directly, the deltas printed;
+   (c) ``tools/torch_stage_time.py --batch 8 --iters 2`` for bf16,
+   int8-default (``--per-channel``) and int8-fused (``--fused-bottleneck``):
+   five lines each after its full prefix equals ``make_infer_fn``; in (b)
+   every NMS and ROIAlign call, in (c) those of the full-prefix check and
+   of the first calibration chunk (a recorded fused-block call keeps its
+   input, ~134 MB at batch 8), held against the plain versions; (d)
+   ``examples/torch_quickstart.py --device cuda`` prints 5 finite losses,
+   and ``examples/torch_visualize_rpn_targets.py --device cuda`` writes a
+   PNG that decodes at 128×128 with the counts of the same script on the
+   CPU (both subprocesses).
 
 The line before the last is the kernel table as JSON (launches counted on
 the path that runs each kernel: the training paths of phases 6 and 12 and
 phase 12's inference paths for the four of phases 2–6, the int8 serving paths for the fused block and the
 int8 ROIAlign, the probes' entry points for the three probe kernels, and
-phase 13's paths for the six kernels they run; phase 11's launches are
+phases 13 and 14's paths for the kernels they run; phase 11's launches are
 checked and logged, not tabled); the last line is ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
 """
@@ -1957,6 +1979,7 @@ def serving_phase(device, card):
         launches, _, _ = drive_server(server, "float", images, pngs, card, concurrent=True)
         want = {"nms": 2 * (requests + 2), "roi_align": requests + 2, "roi_align_int8": 0}
         check_launches("float", launches, want)
+        tagged_requests(server, images[2], card)
         log(f"serving (float): peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"[{card}]")
         stop(servers)
@@ -3764,6 +3787,342 @@ def bench_and_remat_phase(params, card):
     return tally, errs
 
 
+# ---------------------------------------------------------------- phase 14
+
+ACCURACY_STEPS = 20  # training steps of 14(b)'s checkpoint
+ACCURACY_RECIPES = (("default", []), ("per-channel, percentile 90",
+                                      ["--per-channel", "--percentile", "90"]))
+ACCURACY_ARGV = ["--images", "16", "--calib-images", "8"]
+# benchmarks/int8_accuracy.py's keys
+JAX_ACCURACY_KEYS = {"float": {"box_mAP@0.5", "mask_mAP@0.5"},
+                     "int8": {"box_mAP@0.5", "mask_mAP@0.5"}, "delta": {"box", "mask"}}
+STAGE_RECIPES = (("bf16", ["--no-int8"]), ("int8-default", ["--per-channel"]),
+                 ("int8-fused", ["--fused-bottleneck"]))
+STAGE_ARGV = ["--batch", "8", "--iters", "2"]
+
+
+def exif_turn(a, orientation: int):
+    """``a`` [H, W, C] turned as cv2's IMREAD_COLOR turns it for EXIF
+    ``orientation`` (6 is a turn of 90 degrees clockwise), written apart
+    from ``image_io``'s own table."""
+    import numpy as np
+
+    return {1: lambda: a, 2: lambda: np.fliplr(a), 3: lambda: np.rot90(a, 2),
+            4: lambda: np.flipud(a), 5: lambda: a.transpose(1, 0, 2),
+            6: lambda: np.rot90(a, -1), 7: lambda: np.rot90(np.fliplr(a), -1),
+            8: lambda: np.rot90(a, 1)}[orientation]()
+
+
+def load_tool(name: str):
+    """``tools/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def exif_png(png: bytes, orientation: int) -> bytes:
+    """``png`` with an ``eXIf`` chunk before its first IDAT: a little-endian
+    TIFF block whose IFD0 holds the Orientation tag alone."""
+    import struct
+
+    from objectdetection_torch.data import image_io
+
+    tiff = (b"II" + struct.pack("<HIH", 42, 8, 1)
+            + struct.pack("<HHIHH", 0x0112, 3, 1, orientation, 0) + bytes(4))
+    at = png.index(b"IDAT") - 4
+    return png[:at] + image_io._chunk(b"eXIf", tiff) + png[at:]
+
+
+def post_detect(url: str, body: bytes) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(f"{url}/detect", data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def tagged_requests(server, image, card):
+    """9(b) tagged: ``image`` sent to the float server as a PNG tagged with
+    EXIF orientation 6 and, turned upright, as an untagged PNG: both
+    unmolded at the upright shape (``serve.detect``'s ``image_hw``), both
+    answers equal to the direct call on the upright image; NMS twice and
+    the box-stage ROIAlign once a request."""
+    import numpy as np
+
+    from objectdetection_torch import serve
+    from objectdetection_torch.data import image_io
+    from objectdetection_torch.data.coco import COCO_CLASS_NAMES
+
+    upright = np.ascontiguousarray(exif_turn(image, 6))
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    seen = []
+    reset_launch_counts()
+    with patched(serve, "detect", lambda real: lambda *a: seen.append(tuple(a[4])) or real(*a)):
+        tagged = post_detect(url, exif_png(image_io.encode_png(image), 6))
+        untagged = post_detect(url, image_io.encode_png(upright))
+    check_launches("float, tagged", launch_counts(), {"nms": 4, "roi_align": 2,
+                                                      "roi_align_int8": 0})
+    want = answers(server, upright, COCO_CLASS_NAMES)
+    if seen != [upright.shape[:2]] * 2:
+        fail(f"serving (float, tagged): image_hw {seen}, want {upright.shape[:2]} twice")
+    if tagged["detections"] != want or untagged["detections"] != want:
+        fail("serving (float, tagged): the tagged PNG's answer, the upright PNG's and the direct "
+             "call's differ")
+    log(f"serving (float) request of a {image.shape[0]}x{image.shape[1]} PNG tagged with EXIF "
+        f"orientation 6: image_hw {seen[0]}, {len(want)} detections == the upright image sent "
+        f"untagged == direct call; server latency_ms {tagged['latency_ms']} [{card}]")
+
+
+def exif_decode(card):
+    """14(a): a seeded image as a PNG with an ``eXIf`` chunk for each
+    orientation 1-8, decoded with the C row unfilter (``native=True``, the
+    server's on the card): each equal, bit for bit and in shape, to the
+    untagged decode turned by the tag's numpy flip or transpose."""
+    import numpy as np
+
+    from objectdetection_torch.data import image_io
+
+    img = np.random.RandomState(14).randint(0, 256, (333, 500, 3)).astype(np.uint8)
+    png = image_io.encode_png(img)
+    plain = image_io.decode_image(png, native=True)
+    if not np.array_equal(plain, img):
+        fail("14(a): the untagged PNG does not decode bit-exact")
+    shapes = []
+    for orientation in range(1, 9):
+        t0 = time.perf_counter()
+        got = image_io.decode_image(exif_png(png, orientation), native=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = exif_turn(plain, orientation)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"14(a): orientation {orientation} decodes at {got.shape}, not as the numpy "
+                 f"turn of the untagged decode ({want.shape})")
+        shapes.append(f"{orientation}: {got.shape[0]}x{got.shape[1]} {ms:.1f} ms")
+    log(f"14(a) EXIF orientation on the card's decode path (333x500 PNG, C unfilter): every tag "
+        f"== the numpy turn of the untagged decode; {'; '.join(shapes)} (host) [{card}]")
+
+
+def accuracy_launches(tool, argv):
+    """The kernel launches of one ``torch_int8_accuracy.main(argv)``: each
+    evaluation batch of 8 NMS twice and ROIAlign at both stages (the int8
+    epilogues on the int8 state), each calibration chunk of 4 NMS once and
+    the float ROIAlign at both stages."""
+    args = tool.build_parser().parse_args(argv)
+    batches, chunks = -(-args.images // 8), -(-args.calib_images // 4)
+    return {"nms": 4 * batches + chunks, "roi_align": 2 * batches + 2 * chunks,
+            "roi_align_int8": 2 * batches, "fused_block": 0, "anchor_match": 0,
+            "roi_align_backward": 0}
+
+
+def accuracy_phase(card, tally, errs):
+    """14(b): ``cli train --steps 20 --batch 8 --masks --ckpt D``, then the
+    int8 accuracy tool on D at each of ACCURACY_RECIPES: JAX's JSON keys on
+    its one stdout document, its float mAP@0.5 equal to
+    ``cli.evaluate_on_shapes`` called directly on the checkpoint's state,
+    every NMS and ROIAlign call held against its plain version. The deltas
+    are printed, not gated."""
+    import io
+    import tempfile
+
+    from objectdetection_torch import checkpoint, cli, detector
+    from objectdetection_torch.data.shapes import ShapesDataset
+
+    tool = load_tool("torch_int8_accuracy")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/shapes_ckpt"
+        argv = ["train", "--steps", str(ACCURACY_STEPS), "--batch", "8", "--masks", "--ckpt",
+                ckpt, "--log-every", "100"]
+        n = ACCURACY_STEPS
+        driven("14(b) train", lambda: cli.main(argv), {
+            "nms": n, "anchor_match": n, "roi_align": 2 * n, "roi_align_backward": 2 * n}, tally)
+        direct = None
+        for name, extra in ACCURACY_RECIPES:
+            targv = ["--ckpt", ckpt, *ACCURACY_ARGV, *extra]
+            calls, out, err = [], io.StringIO(), io.StringIO()
+            with recorded_inputs(calls, ("nms", "roi_align")), \
+                    contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                t0 = time.perf_counter()
+                res = driven(f"14(b) {name}", lambda: tool.main(targv),
+                             accuracy_launches(tool, targv), tally)
+                wall = time.perf_counter() - t0
+            if json.loads(out.getvalue()) != res:
+                fail(f"14(b) {name}: stdout {out.getvalue()[-300:]!r} is not the JSON it returned")
+            if set(res) != set(JAX_ACCURACY_KEYS) or any(
+                    not keys <= set(res[k]) for k, keys in JAX_ACCURACY_KEYS.items()) or \
+                    set(res["delta"]) != JAX_ACCURACY_KEYS["delta"]:
+                fail(f"14(b) {name}: keys {({k: sorted(v) for k, v in res.items()})}")
+            if direct is None:
+                args = tool.build_parser().parse_args(targv)
+                cfg = tool.float_config(args)
+                state = checkpoint.load_checkpoint(ckpt, detector.create_train_state(
+                    cfg, device=args.device))
+                ds = ShapesDataset(args.images, 128, 128, seed=args.seed + 1000)
+                direct = cli.evaluate_on_shapes({**state.params, **state.batch_stats}, cfg, ds,
+                                                list(range(args.images)), score_threshold=0.5,
+                                                with_masks=True, device=args.device)
+                del state
+            if (res["float"]["box_mAP@0.5"], res["float"]["mask_mAP@0.5"]) != (
+                    direct["mAP"], direct["mask_mAP"]):
+                fail(f"14(b) {name}: float {res['float']}, evaluate_on_shapes called directly "
+                     f"{direct['mAP']}, {direct['mask_mAP']}")
+            rows = check_against_plain(f"14(b) {name}", calls)
+            for k, (_, e) in rows.items():
+                errs[k] = max(errs.get(k, 0.0), e)
+            log(f"14(b) int8 accuracy ({name}; `tools/torch_int8_accuracy.py --ckpt D "
+                f"{' '.join(ACCURACY_ARGV + extra)}` on the {n}-step checkpoint) in {wall:.1f} s: "
+                f"float {res['float']}, int8 {res['int8']}, delta {res['delta']} (printed, not "
+                f"gated); float == evaluate_on_shapes called directly; recorded calls "
+                f"{({k: v[0] for k, v in rows.items()})} == plain [{card}]")
+
+
+def stage_launches(tool, argv, recorded: bool = False):
+    """The kernel launches of one ``torch_stage_time.main(argv)``: the
+    full-prefix check (the prefix and ``make_infer_fn``, each NMS twice,
+    ROIAlign at both stages, 29 fused blocks on the fused path), the int8
+    calibration (``bench``'s chunks: NMS once and the float ROIAlign at both
+    stages each), then 4 + iters calls of each prefix (NMS from
+    +proposals and again from +detection, ROIAlign from +box_head and again
+    at +masks, the fused blocks in every prefix). With ``recorded``, those
+    of the check and of the first calibration chunk."""
+    from objectdetection_torch import bench
+
+    args = tool.build_parser().parse_args(argv)
+    cfg = bench.bench_config(tool.bench_args(args))
+    depths = [int(x) for x in args.stages.split(",")] if args.stages else range(5)
+    calls = 0 if recorded else 4 + args.iters
+    chunks = -(-args.batch // max(1, args.batch // 16)) if cfg.quantized_inference else 0
+    chunks = min(chunks, 1) if recorded else chunks
+    want = dict.fromkeys(("nms", "roi_align", "roi_align_int8", "fused_block", "anchor_match",
+                          "roi_align_backward"), 0)
+    want["nms"] = 4 + chunks + calls * sum((d >= 1) + (d >= 3) for d in depths)
+    want["roi_align_int8" if cfg.quantized_inference else "roi_align"] = 4 + calls * sum(
+        (d >= 2) + (d >= 4) for d in depths)
+    want["roi_align"] += 2 * chunks
+    if cfg.fused_bottleneck:
+        want["fused_block"] = 29 * (2 + calls * len(depths))
+    return want
+
+
+def stage_phase(card, tally, errs):
+    """14(c): the stage tool at batch 8 for each of STAGE_RECIPES: five
+    lines in pipeline_breakdown.py's format after its full prefix equals
+    ``make_infer_fn``; the NMS, ROIAlign and fused-block calls of that check
+    and of the first calibration chunk held against the plain versions."""
+    import io
+
+    import torch
+
+    from objectdetection_torch import quant
+
+    tool = load_tool("torch_stage_time")
+    for name, extra in STAGE_RECIPES:
+        argv = STAGE_ARGV + extra
+        flag, calls, out, err = [False], [], io.StringIO(), io.StringIO()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(tool, "check_full_prefix",
+                                        lambda real: nth_call_armed(real, 0, flag)))
+            stack.enter_context(patched(quant, "_float_pipeline",
+                                        lambda real: nth_call_armed(real, 0, flag)))
+            stack.enter_context(recorded_inputs(calls, ("nms", "roi_align", "fused_block"),
+                                                lambda: flag[0]))
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                t0 = time.perf_counter()
+                res = driven(f"14(c) {name}", lambda: tool.main(argv),
+                             stage_launches(tool, argv), tally)
+                wall = time.perf_counter() - t0
+        lines = out.getvalue().splitlines()
+        if [line.split()[0] for line in lines] != list(tool.NAMES) or len(res["stages"]) != 5 \
+                or "full prefix == make_infer_fn" not in err.getvalue():
+            fail(f"14(c) {name}: stdout {lines}, stderr {err.getvalue()[-400:]!r}")
+        rows = check_against_plain(f"14(c) {name}", calls)
+        recorded = {k: v for k, v in stage_launches(tool, argv, recorded=True).items() if v}
+        if {k: n for k, (n, _) in rows.items()} != recorded:
+            fail(f"14(c) {name}: recorded {rows}, want the calls {recorded}")
+        for k, (_, e) in rows.items():
+            errs[k] = max(errs.get(k, 0.0), e)
+        for text in err.getvalue().splitlines():
+            if "ptxas" not in text and text.strip():
+                log(f"  {text}")
+        log(f"14(c) stage time ({name}; `tools/torch_stage_time.py {' '.join(argv)}`, "
+            f"{res['config']}) in {wall:.1f} s; full prefix == make_infer_fn; recorded calls "
+            f"{({k: v[0] for k, v in rows.items()})} == plain [{card}]")
+        for line in lines:
+            log(f"  {line}")
+        del calls
+        torch.cuda.empty_cache()
+
+
+def examples_phase(card):
+    """14(d): the two examples as subprocesses with ``--device cuda``: the
+    quickstart prints 5 finite losses and a line an image; the RPN-target
+    PNG decodes at 128x128 and its counts equal the same script's with
+    ``--device cpu``."""
+    import math
+    import re
+    import tempfile
+
+    import torch
+
+    from objectdetection_torch.data.image_io import decode_image
+
+    torch.cuda.empty_cache()  # the examples are other processes on the card
+
+    def run(name, *args):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / name), *args], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"14(d): `{name} {' '.join(args)}` exit {proc.returncode}: "
+                 f"{proc.stderr[-800:]}")
+        return proc.stdout.splitlines(), time.perf_counter() - t0
+
+    lines, wall = run("torch_quickstart.py", "--device", "cuda")
+    losses = [re.fullmatch(rf"step {i}: total_loss=(\S+)", line)
+              for i, line in enumerate(lines[:5])]
+    images = [re.fullmatch(rf"image {b}: \d+ detections, mask grid \(28, 28\) each", line)
+              for b, line in enumerate(lines[5:])]
+    if len(lines) != 7 or not all(losses) or not all(images) or not all(
+            math.isfinite(float(m.group(1))) for m in losses):
+        fail(f"14(d) quickstart: {lines}")
+    log(f"14(d) `examples/torch_quickstart.py --device cuda` exit 0 in {wall:.1f} s: "
+        f"{'; '.join(lines)} [{card}]")
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            out = f"{tmp}/rpn_{dev}.png"
+            lines, wall = run("torch_visualize_rpn_targets.py", "--device", dev, "--out", out)
+            m = re.fullmatch(rf"wrote {re.escape(out)}: (\d+) positive, (\d+) negative anchors",
+                             lines[-1] if lines else "")
+            with open(out, "rb") as f:
+                shape = decode_image(f.read()).shape
+            if m is None or shape != (128, 128, 3):
+                fail(f"14(d) rpn targets ({dev}): {lines}, PNG {shape}")
+            counts[dev] = (int(m.group(1)), int(m.group(2)))
+            log(f"14(d) `examples/torch_visualize_rpn_targets.py --device {dev}` exit 0 in "
+                f"{wall:.1f} s: {counts[dev][0]} positive, {counts[dev][1]} negative anchors, "
+                f"PNG {shape}")
+    if counts["cuda"] != counts["cpu"]:
+        fail(f"14(d) rpn targets: counts {counts['cuda']} on the card, {counts['cpu']} on the CPU")
+
+
+def last_slice_phase(card):
+    """14: EXIF orientation (a; its server part runs in phase 9(b)), the
+    int8 accuracy tool (b), the stage tool (c) and the examples (d).
+    Returns the kernels' launches of its paths as the counters read them,
+    and each kernel's largest |kernel - plain| over the calls it recorded."""
+    t0 = time.perf_counter()
+    tally, errs = {}, {}
+    exif_decode(card)
+    accuracy_phase(card, tally, errs)
+    stage_phase(card, tally, errs)
+    examples_phase(card)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s; launches {tally}; recorded calls' largest "
+        f"|kernel - plain| {errs}")
+    return tally, errs
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3804,6 +4163,11 @@ def main() -> None:
     bench_launches_, bench_errs = bench_and_remat_phase(params, card)
     for k, v in bench_launches_.items():
         launches[k] += v
+    slice_launches, slice_errs = last_slice_phase(card)
+    for k, v in slice_launches.items():
+        launches[k] += v
+    for k, v in slice_errs.items():
+        bench_errs[k] = max(bench_errs.get(k, 0.0), v)
 
     kernels = []
     for name, rec, source, replaces in (

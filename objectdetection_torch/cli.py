@@ -91,10 +91,12 @@ def run_demo(config, num_images: int = 2, seed: int = 0, out_prefix: str = "demo
 
 
 def evaluate_on_shapes(params, cfg, ds, image_ids, score_threshold=None, with_masks=False,
-                       device="cuda"):
+                       device="cuda", iou_thresholds=(0.5,)):
     """Inference on shapes images in batches of 8: box mAP@0.5 (and mask
-    mAP@0.5 with ``with_masks``, the masks pasted at the image's size).
-    ``params`` is the whole state dict on ``device``."""
+    mAP@0.5 with ``with_masks``, the masks pasted at the image's size); or
+    each averaged over a sweep of ``iou_thresholds``, beside the box and
+    mask mAP@0.5 of the same pass (``AP50``, ``mask_AP50``). ``params`` is
+    the whole state dict on ``device``."""
     import numpy as np
 
     from objectdetection_torch import detector
@@ -106,8 +108,8 @@ def evaluate_on_shapes(params, cfg, ds, image_ids, score_threshold=None, with_ma
     eval_cfg = cfg if score_threshold is None else cfg.replace(
         detection_min_threshold=score_threshold)
     infer = detector.make_infer_fn(eval_cfg, with_masks=with_masks, device=dev)
-    ev = DetectionEvaluator(cfg.num_classes, iou_thresholds=[0.5])
-    ev_mask = (DetectionEvaluator(cfg.num_classes, iou_thresholds=[0.5], use_masks=True)
+    ev = DetectionEvaluator(cfg.num_classes, iou_thresholds=iou_thresholds)
+    ev_mask = (DetectionEvaluator(cfg.num_classes, iou_thresholds=iou_thresholds, use_masks=True)
                if with_masks else None)
     h = cfg.image_shape[0]
     scale = np.array([h - 1, h - 1, h - 1, h - 1], np.float32)
@@ -135,7 +137,10 @@ def evaluate_on_shapes(params, cfg, ds, image_ids, score_threshold=None, with_ma
                     pred_masks=pred_masks, gt_masks=batch.gt_masks[bi][gt_valid] > 0.5)
     out = ev.evaluate()
     if ev_mask is not None:
-        out["mask_mAP"] = ev_mask.evaluate()["mAP"]
+        masks = ev_mask.evaluate()
+        out["mask_mAP"] = masks["mAP"]
+        if list(iou_thresholds) != [0.5] and "AP50" in masks:
+            out["mask_AP50"] = masks["AP50"]
     return out
 
 

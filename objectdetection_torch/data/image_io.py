@@ -13,11 +13,20 @@ uint8 [H, W, 3]) for the formats it decodes itself:
 
 Other formats (JPEG, interlaced PNG, ...) go through Pillow when it
 imports; without it :func:`decode_image` raises :class:`ImageDecodeError`
-with the reason. An image of more than :data:`MAX_PIXELS` pixels is
-refused from its header, before any data is inflated or decoded, and a PNG
-inflates no further than the bytes its header describes: a small body
-cannot make a large allocation. :func:`encode_png` and :func:`encode_ppm`
-write RGB images.
+with the reason.
+
+The EXIF Orientation tag turns the pixels upright as ``IMREAD_COLOR``
+turns them: it is read from a JPEG's APP1 ``Exif`` segment or a PNG's
+``eXIf`` chunk (either TIFF byte order; missing, malformed or outside 1-8
+reads as 1, as in cv2), and its flip or transpose is applied in numpy after
+decoding, on the own PNG path and on Pillow's alike (Pillow's ``convert``
+ignores the tag). A PNG therefore turns without Pillow.
+
+An image of more than :data:`MAX_PIXELS` pixels is refused from its
+header (W x H, which a turn does not change), before any data is inflated
+or decoded, and a PNG inflates no further than the bytes its header
+describes: a small body cannot make a large allocation.
+:func:`encode_png` and :func:`encode_ppm` write RGB images.
 
 PNG rows filtered with Average or Paeth (as libpng and Pillow write most
 rows of a photo) form a recurrence along each row. :func:`unfilter` walks
@@ -77,11 +86,83 @@ def decode_image(buf: bytes, native: bool = False) -> np.ndarray:
         try:
             with Image.open(io.BytesIO(buf)) as im:  # reads the header only
                 _check_size(*im.size)
-                return np.asarray(im.convert("RGB"), np.uint8).copy()
+                rgb = np.array(im.convert("RGB"), np.uint8)  # a writable copy
         except ImageDecodeError:
             raise
         except Exception as exc:  # Pillow raises many types for bad bytes
             raise ImageDecodeError(f"{own}; Pillow: {exc}") from None
+        return upright(rgb, exif_orientation(buf))
+
+
+# EXIF orientation -> the view of the decoded [H, W, C] pixels that is
+# upright: cv2's applyExifOrientation (2 flips left-right, 6 is a turn of
+# 90 degrees clockwise, 5-8 transpose)
+_UPRIGHT = {
+    2: lambda a: a[:, ::-1],
+    3: lambda a: a[::-1, ::-1],
+    4: lambda a: a[::-1],
+    5: lambda a: a.swapaxes(0, 1),
+    6: lambda a: a.swapaxes(0, 1)[:, ::-1],
+    7: lambda a: a.swapaxes(0, 1)[::-1, ::-1],
+    8: lambda a: a.swapaxes(0, 1)[::-1],
+}
+
+
+def upright(pixels: np.ndarray, orientation: int) -> np.ndarray:
+    """``pixels`` [H, W, C] as EXIF ``orientation`` (1-8) says they are
+    seen, contiguous (a new array unless ``orientation`` is 1)."""
+    return np.ascontiguousarray(_UPRIGHT.get(orientation, lambda a: a)(pixels))
+
+
+def tiff_orientation(block: bytes) -> int:
+    """The Orientation tag (0x0112) of an EXIF TIFF block (a PNG ``eXIf``
+    chunk, or a JPEG APP1 payload after ``Exif\\0\\0``): 1-8, or 1 where
+    it is missing, malformed or out of range. Read as cv2 reads it: byte
+    order ``II`` or ``MM``, the mark 42, then IFD0's entries in order while
+    whole ones fit, the tag's first 16-bit value whatever its stated type."""
+    if len(block) < 8 or block[:2] not in (b"II", b"MM"):
+        return 1
+    order = "<" if block[:2] == b"II" else ">"
+    mark, ifd = struct.unpack_from(order + "HI", block, 2)
+    if mark != 42 or ifd + 2 > len(block):
+        return 1
+    (count,) = struct.unpack_from(order + "H", block, ifd)
+    for pos in range(ifd + 2, min(ifd + 2 + 12 * count, len(block) - 11), 12):
+        tag, _, _, value = struct.unpack_from(order + "HHIH", block, pos)
+        if tag == 0x0112:
+            return value if 1 <= value <= 8 else 1
+    return 1
+
+
+def _jpeg_exif(buf: bytes) -> bytes:
+    """The TIFF block of a JPEG's first APP1 ``Exif`` segment before its
+    scan, or b"" where it has none."""
+    pos = 2
+    while pos + 4 <= len(buf) and buf[pos] == 0xFF:
+        marker = buf[pos + 1]
+        if marker == 0xFF:  # a fill byte
+            pos += 1
+        elif marker in (0x01, 0xD8) or 0xD0 <= marker <= 0xD7:  # no length
+            pos += 2
+        elif marker in (0xD9, 0xDA):  # end of image, start of scan
+            break
+        else:
+            (length,) = struct.unpack_from(">H", buf, pos + 2)
+            segment = buf[pos + 4:pos + 2 + length]
+            if marker == 0xE1 and segment.startswith(b"Exif\0\0"):
+                return segment[6:]
+            pos += 2 + length
+    return b""
+
+
+def exif_orientation(buf: bytes) -> int:
+    """The EXIF orientation (1-8) of JPEG or PNG bytes; 1 for any other
+    format, or where the tag is missing or malformed."""
+    if buf.startswith(PNG_SIGNATURE):
+        return tiff_orientation(next((d for k, d in _png_chunks(buf) if k == b"eXIf"), b""))
+    if buf.startswith(b"\xff\xd8"):
+        return tiff_orientation(_jpeg_exif(buf))
+    return 1
 
 
 def _to_rgb8(samples: np.ndarray, channels: int) -> np.ndarray:
@@ -210,9 +291,10 @@ def unfilter_native(rows: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def decode_png(buf: bytes, native: bool = False) -> np.ndarray:
-    """Non-interlaced PNG → RGB uint8; ``native`` undoes the row filters
-    with :func:`unfilter_native` instead of :func:`unfilter`."""
-    header, palette, idat = None, None, []
+    """Non-interlaced PNG → RGB uint8, turned upright by its ``eXIf``
+    orientation; ``native`` undoes the row filters with
+    :func:`unfilter_native` instead of :func:`unfilter`."""
+    header, palette, idat, exif = None, None, [], b""
     for kind, data in _png_chunks(buf):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", data)
@@ -220,6 +302,8 @@ def decode_png(buf: bytes, native: bool = False) -> np.ndarray:
             palette = np.frombuffer(data, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(data)
+        elif kind == b"eXIf" and not exif:
+            exif = data
     if header is None or not idat:
         raise ImageDecodeError("PNG has no IHDR or no IDAT")
     w, h, depth, ctype, compression, filt, interlace = header
@@ -262,8 +346,10 @@ def decode_png(buf: bytes, native: bool = False) -> np.ndarray:
         idx = samples[..., 0]
         if int(idx.max()) >= len(palette):
             raise ImageDecodeError("palette index outside PLTE")
-        return palette[idx]
-    return _to_rgb8(samples, channels)
+        rgb = palette[idx]
+    else:
+        rgb = _to_rgb8(samples, channels)
+    return upright(rgb, tiff_orientation(exif))
 
 
 def png_row_filters(buf: bytes) -> np.ndarray:

@@ -109,3 +109,8 @@ def iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     area_b = box_area(boxes_b)[..., None, :]
     union = area_a + area_b - inter
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
+
+
+def pairwise_iou(boxes: torch.Tensor) -> torch.Tensor:
+    """[..., N, 4] → [..., N, N] self-IoU: ``iou_matrix(boxes, boxes)``."""
+    return iou_matrix(boxes, boxes)

@@ -86,3 +86,22 @@ def test_deltas_clip_iou_match():
                                   np.asarray(jgeo.box_area(jnp.asarray(a))))
     np.testing.assert_array_equal(tgeo.iou_matrix(ta, tb).numpy(),
                                   np.asarray(jgeo.iou_matrix(jnp.asarray(a), jnp.asarray(b))))
+
+
+@pytest.mark.parametrize("n", [1, 10, 37])
+def test_pairwise_iou_matches_jax(n):
+    # tests/test_geometry.py's case (random boxes in a 100-pixel frame, the
+    # diagonal 1), plus a degenerate box whose row and column are 0
+    rng = np.random.RandomState(n)
+    yx = rng.rand(n, 2) * 100.0
+    hw = rng.rand(n, 2) * 50.0 + 1.0
+    b = np.concatenate([yx, yx + hw], 1).astype(np.float32)
+    got = tgeo.pairwise_iou(torch.from_numpy(b)).numpy()
+    want = np.asarray(jgeo.pairwise_iou(jnp.asarray(b)))
+    assert got.shape == (n, n)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.diag(got), 1.0, rtol=1e-5)
+    b[0, 2:] = b[0, :2]  # zero area
+    got = tgeo.pairwise_iou(torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jgeo.pairwise_iou(jnp.asarray(b))), atol=1e-6)
+    assert not got[0].any() and not got[:, 0].any()

@@ -178,3 +178,106 @@ def test_jpeg_goes_through_pillow_when_it_imports():
     assert got.shape == (37, 53, 3) and got.dtype == np.uint8
     # another JPEG decoder: close to cv2's, not bit-equal
     assert np.abs(got.astype(int) - cv2_rgb(buf.tobytes()).astype(int)).mean() < 2.0
+
+
+# ---------------------------------------------------------------- EXIF orientation
+#
+# cv2's IMREAD_COLOR turns the pixels upright by the EXIF Orientation tag
+# (0x0112) of a JPEG's APP1 segment or a PNG's eXIf chunk; decode_image must
+# return what cv2 returns, in shape and pixels, for every tag.
+
+ORIENTED = RNG.randint(0, 256, (40, 64, 3)).astype(np.uint8)  # not square
+
+
+def tiff_block(orientation: int, order: str = "II", entries=None) -> bytes:
+    """An EXIF TIFF block whose IFD0 holds ``entries`` (tag, type, count,
+    16-bit value), by default the Orientation tag alone as a SHORT."""
+    e = "<" if order == "II" else ">"
+    entries = entries or [(0x0112, 3, 1, orientation)]
+    ifd = struct.pack(e + "H", len(entries)) + b"".join(
+        struct.pack(e + "HHIHH", tag, kind, count, value, 0)
+        for tag, kind, count, value in entries)
+    return order.encode() + struct.pack(e + "HI", 42, 8) + ifd + struct.pack(e + "I", 0)
+
+
+def with_exif(fmt: str, block: bytes, header: bytes = b"Exif\0\0") -> bytes:
+    """ORIENTED as PNG (the port's encoder, an eXIf chunk before IDAT) or as
+    JPEG (cv2's encoder, an APP1 segment after its JFIF APP0)."""
+    if fmt == "png":
+        buf = image_io.encode_png(ORIENTED)
+        at = buf.index(b"IDAT") - 4
+        return buf[:at] + image_io._chunk(b"eXIf", block) + buf[at:]
+    buf = cv2.imencode(".jpg", ORIENTED[..., ::-1].copy())[1].tobytes()
+    at = 4 + struct.unpack(">H", buf[4:6])[0]  # past SOI and APP0
+    payload = header + block
+    return buf[:at] + b"\xff\xe1" + struct.pack(">H", len(payload) + 2) + payload + buf[at:]
+
+
+@pytest.mark.parametrize("order", ["II", "MM"])
+@pytest.mark.parametrize("fmt", ["png", "jpeg"])
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_exif_orientation_turns_the_image_as_cv2_does(orientation, fmt, order):
+    if fmt == "jpeg":
+        pytest.importorskip("PIL.Image")
+    got = assert_decodes_as_cv2(with_exif(fmt, tiff_block(orientation, order)))
+    assert got.shape == ((64, 40, 3) if orientation >= 5 else (40, 64, 3))
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpeg"])
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_exif_written_by_pillow_turns_the_image_as_cv2_does(orientation, fmt):
+    Image = pytest.importorskip("PIL.Image")
+    exif = Image.Exif()
+    exif[0x0112] = orientation
+    buf = io.BytesIO()
+    Image.fromarray(ORIENTED).save(buf, fmt.upper(), exif=exif.tobytes())
+    assert image_io.exif_orientation(buf.getvalue()) == orientation
+    assert_decodes_as_cv2(buf.getvalue())
+
+
+MALFORMED = {
+    "zero": tiff_block(0),
+    "nine": tiff_block(9),
+    "byte order": b"XX" + tiff_block(6)[2:],
+    "mark": tiff_block(6)[:2] + b"\x2b\x00" + tiff_block(6)[4:],
+    "ifd past the end": tiff_block(6)[:4] + struct.pack("<I", 1000) + tiff_block(6)[8:],
+    "entry cut short": tiff_block(6)[:16],
+    "no orientation": tiff_block(0, entries=[(0x010F, 2, 1, 0)]),
+}
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpeg"])
+@pytest.mark.parametrize("case", sorted(MALFORMED))
+def test_a_missing_or_malformed_orientation_reads_as_1(case, fmt):
+    if fmt == "jpeg":
+        pytest.importorskip("PIL.Image")
+    buf = with_exif(fmt, MALFORMED[case])
+    assert image_io.exif_orientation(buf) == 1
+    got = assert_decodes_as_cv2(buf)
+    assert got.shape == ORIENTED.shape
+
+
+def test_orientation_is_read_from_whole_entries_in_order():
+    # the tag after another entry, and an IFD that counts more entries than
+    # its block holds: cv2 reads the entries that fit
+    second = tiff_block(0, entries=[(0x010F, 2, 1, 0), (0x0112, 3, 1, 6)])
+    short_count = bytearray(tiff_block(6))
+    short_count[8] = 5
+    for block in (second, bytes(short_count)):
+        assert image_io.tiff_orientation(block) == 6
+        assert assert_decodes_as_cv2(with_exif("png", block)).shape == (64, 40, 3)
+    # an APP1 that is not "Exif\0\0" carries no orientation
+    pytest.importorskip("PIL.Image")
+    buf = with_exif("jpeg", tiff_block(6), header=b"Exif\0\xff")
+    assert assert_decodes_as_cv2(buf).shape == ORIENTED.shape
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_png_turns_without_pillow(orientation, monkeypatch):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "PIL", None)  # `import PIL` raises ImportError
+    with pytest.raises(ImportError):
+        import PIL  # noqa: F401
+    for order in ("II", "MM"):
+        assert_decodes_as_cv2(with_exif("png", tiff_block(orientation, order)))

@@ -1,6 +1,7 @@
 """Isolation and device rules of the port.
 
-- The port, ``chip_smoke.py`` and ``tools/torch_*.py`` import neither JAX,
+- The port, ``chip_smoke.py``, ``tools/torch_*.py`` and
+  ``examples/torch_*.py`` import neither JAX,
   flax nor any module of ``objectdetection_tpu`` (checked in a fresh
   interpreter, and by a scan of the sources).
 - No port module imports ``cv2``, ``PIL`` or ``h5py`` at module level (the
@@ -64,7 +65,8 @@ def test_importing_the_port_loads_no_jax():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py",
-                                       *(ROOT / "tools").glob("torch_*.py")]))
+                                       *(ROOT / "tools").glob("torch_*.py"),
+                                       *(ROOT / "examples").glob("torch_*.py")]))
 def test_sources_import_nothing_of_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):

@@ -282,3 +282,40 @@ def test_serve_defaults_to_the_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA"):
         tserve.serve(config=TCFG, port=0, block=False)
+
+
+def test_a_tagged_jpeg_is_served_upright(model_servers, monkeypatch):
+    # EXIF orientation 6 (a turn of 90 degrees clockwise): the server detects
+    # on the upright image and unmolds at its shape, as for that image posted
+    # untagged (PNG of the same pixels)
+    pytest.importorskip("PIL.Image")
+    import struct
+
+    import cv2
+
+    from objectdetection_torch.data import preprocess
+
+    _, turl, _ = model_servers
+    img = request_images()[0]  # 48 x 80
+    jpeg = cv2.imencode(".jpg", img[..., ::-1].copy())[1].tobytes()
+    tiff = b"II" + struct.pack("<HIH", 42, 8, 1) + struct.pack("<HHIHH", 0x0112, 3, 1, 6, 0) \
+        + bytes(4)
+    app1 = b"Exif\0\0" + tiff
+    tagged = jpeg[:2] + b"\xff\xe1" + struct.pack(">H", len(app1) + 2) + app1 + jpeg[2:]
+    upright = image_io.decode_image(tagged)
+    assert upright.shape == (80, 48, 3)
+    np.testing.assert_array_equal(upright, image_io.decode_image(jpeg).swapaxes(0, 1)[:, ::-1])
+
+    image_hw = []
+    unmold = preprocess.unmold_detections
+
+    def spy(*args):
+        image_hw.append(tuple(int(x) for x in args[3]))
+        return unmold(*args)
+
+    monkeypatch.setattr(preprocess, "unmold_detections", spy)
+    got = detections(post(turl, tagged))
+    want = detections(post(turl, image_io.encode_png(upright)))
+    assert image_hw == [(80, 48), (80, 48)]
+    assert len(want) > 0 and got == want
+    assert all(y2 <= 80 and x2 <= 48 for _, _, y2, x2 in (d["box_yxyx"] for d in got))
