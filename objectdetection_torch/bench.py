@@ -206,25 +206,35 @@ def serving_state(params: Dict[str, torch.Tensor], images: torch.Tensor, cfg, ca
 
 
 def _profiled(fn, dev: torch.device, top: int = 5) -> str:
-    """Host wall, device time and its share, and the ``top`` kernels by
-    device time, of one profiled ``fn()``."""
+    """Host wall, device busy time (the union of the kernels' intervals) and
+    its share, the ``top`` kernels by device time, and the device ms of each
+    of the program's spans, of one profiled ``fn()``."""
+    from objectdetection_torch import metrics
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     _sync(dev)
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+    with metrics.collect(dev) as rec, torch.profiler.profile(activities=acts,
+                                                             acc_events=True) as prof:
         t0 = time.perf_counter()
         fn()
         _sync(dev)
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    # a span's record_function is mirrored on the device's timeline: not a kernel
+    busy = metrics.union_length(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == cuda and not getattr(e, "is_user_annotation", False)) / 1e3
     if not busy > 0:
         raise RuntimeError("bench: the profiler saw no device time")
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == cuda and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: e.self_device_time_total, reverse=True)
     largest = "; ".join(f"{e.self_device_time_total / 1e3:.1f} ms {e.count}x {e.key[:60]}"
                         for e in kernels[:top])
+    spans = ", ".join(f"{s.name} {s.device_ms:.1f}" for s in rec.resolve().spans)
     return (f"wall {wall:.1f} ms, device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "
-            f"{sum(e.count for e in kernels)} kernels; largest: {largest}")
+            f"{sum(e.count for e in kernels)} kernels; largest: {largest}; "
+            f"spans (device ms): {spans}")
 
 
 def main(argv=None) -> dict:

@@ -39,7 +39,7 @@ import torch
 from torch.func import functional_call
 
 from objectdetection_torch import losses as losses_lib
-from objectdetection_torch import optim
+from objectdetection_torch import metrics, optim
 from objectdetection_torch.anchors import config_anchors
 from objectdetection_torch.config import DetectorConfig
 from objectdetection_torch.convert import (
@@ -143,11 +143,12 @@ def make_infer_fn(config: DetectorConfig, with_masks: bool = True, device="cuda"
     dev = resolve_device(device)
 
     def infer_fn(params, images, windows):
-        require_on(dev, params, "params")
-        images = torch.as_tensor(images, dtype=torch.float32, device=dev)
-        windows = torch.as_tensor(windows, dtype=torch.float32, device=dev)
-        with torch.inference_mode():
-            return forward_inference(params, images, windows, config, with_masks)
+        with metrics.span("odtorch.infer"):
+            require_on(dev, params, "params")
+            images = torch.as_tensor(images, dtype=torch.float32, device=dev)
+            windows = torch.as_tensor(windows, dtype=torch.float32, device=dev)
+            with torch.inference_mode():
+                return forward_inference(params, images, windows, config, with_masks)
 
     return infer_fn
 

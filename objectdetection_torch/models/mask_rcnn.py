@@ -33,6 +33,7 @@ from objectdetection_torch.config import DetectorConfig
 from objectdetection_torch.geometry import norm_boxes
 from objectdetection_torch.layers.detection import detection_layer
 from objectdetection_torch.layers.proposals import proposal_layer
+from objectdetection_torch import metrics
 from objectdetection_torch import quant as Q
 from objectdetection_torch.models.backbone import Quant, ResNetFPN
 from objectdetection_torch.models.heads import BoxClassHead, MaskHead
@@ -86,17 +87,19 @@ class MaskRCNN(nn.Module):
         ``(int8 P2..P5 NHWC, scale)`` or None with ``return_qfeats``."""
         cfg = self.config
         dt = compute_dtype(cfg)
-        if cfg.input_scale != 1.0:
-            images = images * cfg.input_scale
-        x = images.permute(0, 3, 1, 2).to(dt).contiguous(memory_format=torch.channels_last)
-        feats = self.fpn(x)
-        feats_nhwc = [f.permute(0, 2, 3, 1) for f in feats]
-        if return_qfeats:
-            logits, probs, deltas, q = self.rpn_model(feats, return_quantized_inputs=True)
-            if q is not None:
-                q = (q[0][:4], q[1])  # ROIAlign reads P2..P5
-            return feats_nhwc, logits, probs, deltas, q
-        logits, probs, deltas = self.rpn_model(feats)
+        with metrics.span("odtorch.backbone"):
+            if cfg.input_scale != 1.0:
+                images = images * cfg.input_scale
+            x = images.permute(0, 3, 1, 2).to(dt).contiguous(memory_format=torch.channels_last)
+            feats = self.fpn(x)
+            feats_nhwc = [f.permute(0, 2, 3, 1) for f in feats]
+        with metrics.span("odtorch.rpn"):
+            if return_qfeats:
+                logits, probs, deltas, q = self.rpn_model(feats, return_quantized_inputs=True)
+                if q is not None:
+                    q = (q[0][:4], q[1])  # ROIAlign reads P2..P5
+                return feats_nhwc, logits, probs, deltas, q
+            logits, probs, deltas = self.rpn_model(feats)
         return feats_nhwc, logits, probs, deltas
 
     def _roi_align(self, feats: Sequence[torch.Tensor], rois, crop_size,
@@ -167,15 +170,23 @@ class MaskRCNN(nn.Module):
         else:
             feats, rpn_logits, rpn_probs, rpn_deltas = self.extract(images)
             qfeats = None
-        anchors = torch.from_numpy(config_anchors(cfg)).to(images.device)
-        proposals = proposal_layer(rpn_probs, rpn_deltas, anchors, cfg)
-        roi_pooled, (_, cls_probs, bbox) = self._classify(feats, proposals, qfeats)
-        norm_windows = norm_boxes(windows, cfg.image_shape[:2])
-        det = detection_layer(proposals, cls_probs, bbox, norm_windows, cfg)
+        with metrics.span("odtorch.proposals"):
+            anchors = torch.from_numpy(config_anchors(cfg)).to(images.device)
+            proposals = proposal_layer(rpn_probs, rpn_deltas, anchors, cfg)
+        with metrics.span("odtorch.box_stage"):
+            roi_pooled, (_, cls_probs, bbox) = self._classify(feats, proposals, qfeats)
+        with metrics.span("odtorch.detection"):
+            norm_windows = norm_boxes(windows, cfg.image_shape[:2])
+            det = detection_layer(proposals, cls_probs, bbox, norm_windows, cfg)
         masks = mask_pooled = None
         if with_masks:
-            mask_pooled, masks = self._masks(feats, det[..., :4], det[..., 4].to(torch.int64),
-                                             qfeats)
+            with metrics.span("odtorch.mask_stage"):
+                if metrics.collecting():
+                    # every detection row runs the mask stage, empty or not
+                    metrics.count("mask_stage.rows", det.shape[0] * det.shape[1])
+                    metrics.count("mask_stage.valid", (det[..., 5] > 0).sum())
+                mask_pooled, masks = self._masks(feats, det[..., :4],
+                                                 det[..., 4].to(torch.int64), qfeats)
         intermediates = None
         if return_intermediates:
             # the JAX package's keys, plus the two ROIAlign outputs

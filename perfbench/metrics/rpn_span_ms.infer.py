@@ -1,0 +1,13 @@
+"""ms a batch of the program's span ``odtorch.rpn`` (the RPN head, with the
+int8 path's quantized inputs): the mean device extent over the traced calls."""
+
+from perfbench.spans import install, span_ms  # noqa: F401  (install: the recorder)
+
+LAYER = "heads"
+UNIT = "ms"
+SOURCE = "program_span"
+MOVES = "images_per_s"
+
+
+def read(ctx):
+    return span_ms(ctx, "odtorch.rpn")

@@ -93,3 +93,14 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     path = tmp_path / "t" / "trace.json"
     assert os.path.getsize(path) > 0
     assert "traceEvents" in json.loads(path.read_text())
+
+
+@pytest.mark.parametrize("intervals, want", [
+    ([(10, 30), (20, 40), (50, 60), (55, 58)], 30 + 10),  # overlap on two streams, nested
+    ([(5, 6), (0, 10), (10, 12)], 12),  # contained, then touching
+    ([(3, 3), (7, 4), (1, 2)], 1),  # empty and inverted intervals count nothing
+    ([], 0),
+], ids=["overlap", "contained", "empty", "none"])
+def test_union_length_counts_overlaps_once(intervals, want):
+    assert tm.union_length(intervals) == pytest.approx(want)
+    assert tm.union_length(reversed(intervals)) == pytest.approx(want)
