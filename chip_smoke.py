@@ -43,14 +43,19 @@ and prints no result:
    kernel at the four ResNet stage shapes of a 1024² batch of 2, bit-equal
    to its plain version, with each stage's tile, blocks, conv 2a halo
    factor and device time split into the block kernel and its preparation
-   kernel; (b) ROIAlign's int8 epilogues at the box and mask
+   kernel; (a') the fused int8 conv kernel on every conv shape and epilogue
+   of the int8 call (``int8_conv.mask_rcnn_convs``) at batch 2, per channel
+   and per tensor, and on a stage-2 identity block at batch 96, bit-equal to
+   its plain version, each conv's ms beside the plain path's and
+   ``torch._int_mm`` alone; (b) ROIAlign's int8 epilogues at the box and mask
    stages (bf16 in → int8 out, int8 in per channel and per tensor → int8
    out, int8 in → bf16 out), bit-equal; (c) two configurations, int8-default
    (``bench.py``'s recipe: per-channel act scales, percentile-90
    calibration, frozen weights) and int8-fused (per-tensor scales,
    ``fused_bottleneck``), each calibrated on the card from the seeded weights
    with every BatchNorm drawn from a seed, frozen, and answering 3 requests
-   through ``make_infer_fn``; (d) each against the plain path on the same
+   through ``make_infer_fn`` (125 int8 convs a request, 38 beside the fused
+   blocks); (d) each against the plain path on the same
    frozen weights and batch: identical detections and masks; (e) int8-fused
    against the same scales unfused, in f32 compute, block by block (each of
    the 29 identity blocks fused on the unfused stream's own input): within 2
@@ -157,7 +162,8 @@ and prints no result:
    ``remat_backbone``, each path driven with the launch counters set to 0
    just before it and read just after (per batch: NMS twice, ROIAlign
    twice with masks or once without, in the int8 epilogues on the int8
-   path, 29 fused blocks on the fused path; per calibration chunk NMS and
+   path, 29 fused blocks on the fused path, 125 int8 convs on the int8 path
+   and 38 on the fused one; per calibration chunk NMS and
    the float ROIAlign at both stages once): (a) ``bench.main`` at its
    defaults (int8 per-channel, batch 96, R101 1024², masks) with ``--iters
    2 --warmup 1`` and an artifact directory: its one stdout line is the
@@ -167,10 +173,11 @@ and prints no result:
    served, leaf for leaf; (b) ``--no-int8``, (c) ``--fused-bottleneck
    --no-per-channel`` and (d) ``--no-masks --no-int8`` (through
    ``cli.main(["bench", ...])``), each at batch 8; in (a)-(d) every NMS,
-   ROIAlign and fused-block call of the last (profiled) batch and of the
-   first calibration chunk is held against its plain version on its own
-   inputs (bit-equal; bf16 ROIAlign within ``bf16_tolerance``), and the
-   largest gap goes into the kernel line's ``max_abs_err``;
+   ROIAlign, fused-block and int8 conv call of the last (profiled) batch
+   and of the first calibration chunk is held against its plain version on
+   its own inputs, the convs as they are called (bit-equal; bf16 ROIAlign
+   within ``bf16_tolerance``), and the largest gap goes into the kernel
+   line's ``max_abs_err``;
    (e) ``python -m objectdetection_torch.bench --batch 2`` as a
    subprocess, its last stdout line JSON; (f) ``cli train-coco --steps 3
    --batch 8`` on 10(c)'s mini COCO without and with ``--remat`` (the peak
@@ -615,35 +622,38 @@ def plain_path():
     """Route every kernel wrapper to its plain version (for comparison): the
     plain ROIAlign is differentiated by autograd, so its gradient is the
     plain backward too."""
-    from objectdetection_torch.ops import anchor_match, fused_block, nms, roi_align
+    from objectdetection_torch.ops import anchor_match, fused_block, int8_conv, nms, roi_align
 
     saved = (nms.suppress, roi_align.batched_multilevel_roi_align, anchor_match.anchor_match,
-             fused_block.fused_identity_block_int8)
+             fused_block.fused_identity_block_int8, int8_conv.int8_conv_fused)
     nms.suppress = nms.suppress_plain
     roi_align.batched_multilevel_roi_align = roi_align.batched_multilevel_roi_align_plain
     anchor_match.anchor_match = anchor_match.anchor_match_plain
     fused_block.fused_identity_block_int8 = fused_block.fused_identity_block_int8_plain
+    int8_conv.int8_conv_fused = int8_conv.int8_conv_fused_plain
     try:
         yield
     finally:
         (nms.suppress, roi_align.batched_multilevel_roi_align, anchor_match.anchor_match,
-         fused_block.fused_identity_block_int8) = saved
+         fused_block.fused_identity_block_int8, int8_conv.int8_conv_fused) = saved
 
 
 def launch_counts():
-    from objectdetection_torch.ops import anchor_match, fused_block, nms, roi_align
+    from objectdetection_torch.ops import anchor_match, fused_block, int8_conv, nms, roi_align
 
     return {"nms": nms.launches, "roi_align": roi_align.launches,
             "roi_align_backward": roi_align.backward_launches,
             "anchor_match": anchor_match.launches,
-            "roi_align_int8": roi_align.int8_launches, "fused_block": fused_block.launches}
+            "roi_align_int8": roi_align.int8_launches, "fused_block": fused_block.launches,
+            "int8_conv": int8_conv.launches}
 
 
 def reset_launch_counts():
-    from objectdetection_torch.ops import anchor_match, fused_block, nms, roi_align
+    from objectdetection_torch.ops import anchor_match, fused_block, int8_conv, nms, roi_align
 
     nms.launches = roi_align.launches = roi_align.backward_launches = 0
     anchor_match.launches = roi_align.int8_launches = fused_block.launches = 0
+    int8_conv.launches = 0
 
 
 def rms(a, b) -> float:
@@ -1330,6 +1340,61 @@ def fused_block_phase(device):
     return rec
 
 
+def int8_conv_launches(fused: bool) -> int:
+    """The fused int8 conv's launches in one int8 Mask R-CNN call at 1024²:
+    125, or 38 where the 29 identity blocks run as fused blocks."""
+    from objectdetection_torch.ops import int8_conv
+
+    n = sum(c[-1] for c in int8_conv.mask_rcnn_convs(1))
+    return n - 3 * sum(STAGE_BLOCKS) if fused else n
+
+
+def int8_conv_phase(device):
+    """7(a'): the fused int8 conv kernel on every conv shape and epilogue of
+    the int8 Mask R-CNN call (``int8_conv.mask_rcnn_convs``) at batch 2, per
+    channel and per tensor, and on one stage-2 identity block at batch 96,
+    bit-equal to its plain version (im2col, ``torch._int_mm`` and the
+    unfused ops); the kernel line's times are one call's at batch 2 (every
+    conv times its calls), beside ``torch._int_mm`` alone on the im2col
+    matrix."""
+    import torch
+
+    from objectdetection_torch.ops import int8_conv
+
+    tool = load_tool("torch_int8_conv_time")
+    rec = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0, "library_ms": 0.0}
+    cases = [(c, True) for c in int8_conv.mask_rcnn_convs(BATCH)]
+    cases += [(c, False) for c, _ in cases]
+    cases += [((f"res2 {e} batch 96", 96, 256, 256, ci, co, k, 1, e, 0), True)
+              for ci, co, k, e in ((256, 64, 1, "ab"), (64, 64, 3, "ab"), (64, 256, 1, "c_id"))]
+    for conv, pc in cases:
+        name, b, h, w, cin, cout, k, stride, epi, calls = conv
+        x8, k8, post, bias, kw = tool.case(device, *conv[1:9], pc=pc)
+        got = int8_conv.int8_conv_fused(x8, k8, post, bias, **kw)
+        want = int8_conv.int8_conv_fused_plain(x8, k8, post, bias, **kw)
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            fail(f"int8_conv {name} ({'per channel' if pc else 'per tensor'}): kernel differs "
+                 f"from plain in {int((got != want).sum())} of {got.numel()} outputs")
+        if not pc or not calls:
+            continue
+        row = tool.measure(conv, x8, k8, post, bias, kw)
+        for key, v in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                       ("library_ms", "library_ms"), ("bytes_ms", "bytes_ms"),
+                       ("ops_ms", "ops_ms"), ("bound_ms", "bound_ms")):
+            rec[key] += calls * row[v]
+        log(f"int8_conv {name} B={b} {h}x{w} {cin}->{cout} {k}x{k}/{stride} {epi} (x{calls} a "
+            f"call): kernel == plain (per channel and per tensor); {row['kernel_ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.3f}, _int_mm alone {row['library_ms']:.3f}, bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']})")
+    log(f"int8_conv one call at B={BATCH} ({int8_conv_launches(False)} launches): "
+        f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.2f}, _int_mm alone "
+        f"{rec['library_ms']:.2f}, bound {rec['bound_ms']:.4f}; the batch-96 stage-2 block "
+        "kernel == plain")
+    return rec
+
+
 def roi_int8_phase(device):
     """7(b): ROIAlign's int8 epilogues at the main path's shapes, each
     variant bit-equal to its plain version. The kernel line's time is the
@@ -1534,6 +1599,10 @@ def int8_config(name, device, requests, warm):
     if name == "int8-fused" and launches["fused_block"] != 29 * len(requests):
         fail(f"{name}: {launches['fused_block']} fused blocks over {len(requests)} requests, "
              "want 29 per batch")
+    convs = int8_conv_launches(name == "int8-fused")
+    if launches["int8_conv"] != convs * len(requests):
+        fail(f"{name}: {launches['int8_conv']} int8 convs over {len(requests)} requests, want "
+             f"{convs} per batch")
     log(f"{name}: launches over {len(requests)} requests {launches}; peak memory {peak:.2f} GiB")
 
     images, windows = requests[0]
@@ -2496,7 +2565,12 @@ RECORDABLE = {
                   "batched_multilevel_roi_align_plain"),
     "fused_block": ("fused_block", "fused_identity_block_int8",
                     "fused_identity_block_int8_plain"),
+    "int8_conv": ("int8_conv", "int8_conv_fused", "int8_conv_fused_plain"),
 }
+# kinds held against their plain version at the call itself (a batch's 125
+# convs' inputs and outputs would not fit on the card together): recorded as
+# (kind, a description of the shapes, whether kernel == plain)
+CHECKED_AT_CALL = ("int8_conv",)
 
 
 @contextlib.contextmanager
@@ -2515,12 +2589,16 @@ def recorded_inputs(calls, kinds=("nms", "anchor_match"), armed=lambda: True):
             return out.clone()
         return type(out)(*map(copy, out))  # anchor_match's named tuple
 
-    def wrap(kind, fn):
+    def wrap(kind, fn, plain):
         sig = inspect.signature(fn)
 
         def call(*args, **kwargs):
             out = fn(*args, **kwargs)
-            if armed():
+            if armed() and kind in CHECKED_AT_CALL:
+                want = plain(*args, **kwargs)
+                shape = f"{tuple(args[0].shape)} -> {tuple(out.shape)} {str(out.dtype)[6:]}"
+                calls.append((kind, shape, out.dtype == want.dtype and torch.equal(out, want)))
+            elif armed():
                 bound = sig.bind(*args, **kwargs)
                 bound.apply_defaults()
                 calls.append((kind, tuple(bound.arguments.values()), copy(out)))
@@ -2529,10 +2607,10 @@ def recorded_inputs(calls, kinds=("nms", "anchor_match"), armed=lambda: True):
 
     saved = []
     for kind in kinds:
-        module, name, _ = RECORDABLE[kind]
+        module, name, plain = RECORDABLE[kind]
         mod = importlib.import_module(f"objectdetection_torch.ops.{module}")
         saved.append((mod, name, getattr(mod, name)))
-        setattr(mod, name, wrap(kind, saved[-1][2]))
+        setattr(mod, name, wrap(kind, saved[-1][2], getattr(mod, plain)))
     try:
         yield
     finally:
@@ -3417,7 +3495,8 @@ def bench_launches(argv, calibrated: bool, recorded: bool = False):
     batches it runs (the first call, the warm-up, t(1), t(1 + iters) and
     the profiled call), each with NMS twice, ROIAlign twice with masks
     (int8 epilogues on the int8 path) or once without, 29 fused blocks on
-    the fused path; and with ``calibrated``, each calibration chunk's
+    the fused path, the int8 conv kernel 125 times on the int8 path (38 on
+    the fused one); and with ``calibrated``, each calibration chunk's
     float forward (NMS and ROIAlign at both stages once). With
     ``recorded``, those of one batch and one chunk: the calls
     :func:`run_bench` holds against the plain versions."""
@@ -3430,12 +3509,14 @@ def bench_launches(argv, calibrated: bool, recorded: bool = False):
                                                          // max(1, args.batch // 16))
     stages = 1 if args.no_masks else 2
     want = dict.fromkeys(("nms", "roi_align", "roi_align_int8", "fused_block", "anchor_match",
-                          "roi_align_backward"), 0)
+                          "roi_align_backward", "int8_conv"), 0)
     want["nms"] = 2 * batches + chunks
     want["roi_align_int8" if args.int8 else "roi_align"] = stages * batches
     want["roi_align"] += 2 * chunks
     if cfg.fused_bottleneck:
         want["fused_block"] = 29 * batches
+    if args.int8:
+        want["int8_conv"] = int8_conv_launches(cfg.fused_bottleneck) * batches
     return want
 
 
@@ -3491,7 +3572,9 @@ def check_against_plain(name, calls):
     rows, groups, tols = {}, {}, {}
     with torch.inference_mode():
         for kind, args, got in calls:
-            if kind == "roi_align":
+            if kind in CHECKED_AT_CALL:  # got: whether kernel == plain, at the call
+                row, shape = kind, args
+            elif kind == "roi_align":
                 feats, boxes, _, crop, out_quant, in_scale = args
                 row = "roi_align" if out_quant is None and in_scale is None else "roi_align_int8"
                 want = roi_align_plain_by_rois(args)
@@ -3504,7 +3587,11 @@ def check_against_plain(name, calls):
                 row, want = "fused_block", fused_block.fused_identity_block_int8_plain(*args)
                 b, h, w, c3 = args[0].shape
                 shape = f"B={b} {h}x{w} C3={c3}"
-            if row == "roi_align" and got.dtype == torch.bfloat16:
+            if kind in CHECKED_AT_CALL and got:
+                err = 0.0
+            elif kind in CHECKED_AT_CALL:
+                fail(f"{name}: {row} {shape}: kernel not bit-equal to plain")
+            elif row == "roi_align" and got.dtype == torch.bfloat16:
                 err = float((got.float() - want.float()).abs().max())
                 tol = roi_align.bf16_tolerance(feats)
                 if not err <= tol:
@@ -3550,8 +3637,8 @@ def run_bench(name, argv, calibrated, card, tally, errs, states=None, command="b
                                     nth_call_armed(real(*a, **k), batches - 1, flag)))
         stack.enter_context(patched(quant, "_float_pipeline",
                                     lambda real: nth_call_armed(real, 0, flag)))
-        stack.enter_context(recorded_inputs(calls, ("nms", "roi_align", "fused_block"),
-                                            lambda: flag[0]))
+        stack.enter_context(recorded_inputs(calls, ("nms", "roi_align", "fused_block",
+                                                    "int8_conv"), lambda: flag[0]))
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             t0 = time.perf_counter()
             line = driven(name, entry[command], want, tally)
@@ -4149,9 +4236,11 @@ def main() -> None:
     back_rec = roi_backward_phase(device)
     launches = training(params, device)
     block_rec = fused_block_phase(device)
+    conv8_rec = int8_conv_phase(device)
     roi8_rec = roi_int8_phase(device)
     served = int8_serving(device)
     launches["fused_block"] = served["int8-fused"]["launches"]["fused_block"]
+    launches["int8_conv"] = sum(v["launches"]["int8_conv"] for v in served.values())
     launches["roi_align_int8"] = served["int8-default"]["launches"]["roi_align_int8"]
     probe_recs, probe_launches = probe_phase(device)
     launches.update(probe_launches)
@@ -4183,6 +4272,8 @@ def main() -> None:
          "objectdetection_tpu/ops/roi_align_pallas.py:104"),
         ("fused_block", block_rec, "objectdetection_torch/csrc/fused_block.cu",
          "objectdetection_tpu/ops/fused_block.py:98"),
+        ("int8_conv", conv8_rec, "objectdetection_torch/csrc/int8_conv.cu",
+         "none: XLA's int8 conv (objectdetection_tpu/quant.py:15)"),
         ("patch_dma_probe", probe_recs["patch_dma_probe"],
          "objectdetection_torch/csrc/roi_probes.cu", "benchmarks/patch_dma_probe.py:30"),
         ("roi_inner_probe", probe_recs["roi_inner_probe"],

@@ -14,7 +14,9 @@ With a :class:`Quant` spec (``quantized_inference``) every conv is a
 int8 stream between blocks: ``(int8 NHWC tensor, scale)`` pairs, each
 block's output quantized with its calibrated ``out_scale``. Identity blocks
 whose shapes pass ``fused_block_supported`` run as one kernel with
-``fused_bottleneck`` (:mod:`objectdetection_torch.ops.fused_block`).
+``fused_bottleneck`` (:mod:`objectdetection_torch.ops.fused_block`); every
+other int8 block runs as its convs with BatchNorm, ReLU, residual and
+requant in their epilogues (:mod:`objectdetection_torch.ops.int8_conv`).
 ``bf16_stages`` serve whole stages in the compute dtype with dequantized
 int8 kernels. Inside ``quant.calibration()`` every block runs the float
 forward and records its ranges instead.
@@ -179,6 +181,31 @@ class BottleneckBlock(nn.Module):
             scale_b=convs[1].act_scale, scale_c=convs[2].act_scale, out_scale=self.out_scale)
         return y8, self.out_scale
 
+    def _int8_chain(self, x):
+        """The int8 block as its three convs (and the projection), each
+        with its BatchNorm, ReLU, residual and the requant to its consumer's
+        scale in the conv's epilogue (``QuantConv.fused``): conv 2a's and
+        2b's outputs leave as int8 at the next conv's ``act_scale``, 2c's at
+        ``out_scale`` after the residual (the projection's bf16 output, or
+        the block's int8 input dequantized in the epilogue). The same ops in
+        the same order as BatchNorm, ReLU and ``quantize_nchw`` after each
+        conv, so the codes are those of the unfused chain."""
+        cn, bnn = self.names
+        m = self._modules
+        conv_b, conv_c = m[cn + "2b"], m[cn + "2c"]
+        x8, sx = x
+        if self.projection:
+            shortcut = m[cn + "1"].fused(x8, sx, bn=m[bnn + "1"].folded())
+        else:
+            shortcut = x
+        y8 = m[cn + "2a"].fused(x8, sx, bn=m[bnn + "2a"].folded(), relu=True,
+                                out_scale=conv_b.act_scale)
+        y8 = conv_b.fused(y8, conv_b.act_scale, bn=m[bnn + "2b"].folded(), relu=True,
+                          out_scale=conv_c.act_scale)
+        y8 = conv_c.fused(y8, conv_c.act_scale, bn=m[bnn + "2c"].folded(), residual=shortcut,
+                          relu=True, out_scale=self.out_scale)
+        return y8, self.out_scale
+
     def forward(self, x):
         cn, bnn = self.names
         m = self._modules
@@ -190,16 +217,9 @@ class BottleneckBlock(nn.Module):
         if int8_stream and not bf16_serve:
             if self._fusable(x):
                 return self._fused(x)
-            x8, sx = x
-            if self.projection:
-                shortcut = m[bnn + "1"](m[cn + "1"](x8, in_scale=sx))
-            else:
-                shortcut = Q.nchw(Q.dequantize_act(x8, sx, q.dtype))
-            y = m[cn + "2a"](x8, in_scale=sx)
-        else:
-            shortcut = m[bnn + "1"](m[cn + "1"](x)) if self.projection else x
-            y = m[cn + "2a"](x)
-        y = F.relu(m[bnn + "2a"](y))
+            return self._int8_chain(x)
+        shortcut = m[bnn + "1"](m[cn + "1"](x)) if self.projection else x
+        y = F.relu(m[bnn + "2a"](m[cn + "2a"](x)))
         y = F.relu(m[bnn + "2b"](m[cn + "2b"](y)))
         y = m[bnn + "2c"](m[cn + "2c"](y))
         out = F.relu(y + shortcut)
@@ -207,7 +227,7 @@ class BottleneckBlock(nn.Module):
             return out
         if bf16_serve and not self.quantize_out:
             return out
-        if int8_stream:  # re-enter (or stay in) the int8 stream
+        if int8_stream:  # re-enter the int8 stream
             return Q.quantize_nchw(out, self.out_scale), self.out_scale
         Q._record(self.out_scale, out, 1)  # calibration
         return out

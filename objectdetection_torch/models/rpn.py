@@ -8,8 +8,9 @@ the (level, y, x, anchor) order of ``anchors.config_anchors``.
 Quantized (``quant`` given), every conv is a QuantConv. One activation scale
 serves the shared conv's input over all levels, and ``shared_scale``
 quantizes its relu'd output once per level for both 1×1 heads, which run
-as one int8 conv of 2k + 4k outputs: their kernels, per-channel scales and
-biases concatenate on the output axis, so the sums are those of two convs.
+as one int8 conv of 2k + 4k outputs (``ops.int8_conv``): their kernels,
+per-channel scales and biases concatenate on the output axis, so the sums
+are those of two convs.
 ``return_quantized_inputs`` also returns the int8 P-levels the shared conv
 quantized (with its input ``act_scale``), which ROIAlign can read
 (``int8_align_inputs``).
@@ -25,6 +26,7 @@ from torch import nn
 
 from objectdetection_torch import quant as Q
 from objectdetection_torch.models.backbone import Quant, make_conv
+from objectdetection_torch.ops import int8_conv
 
 
 class RPNHead(nn.Module):
@@ -73,8 +75,7 @@ class RPNHead(nn.Module):
             b = shared.shape[0]
             if int8_infer:
                 s8 = Q.quantize_nchw(shared, self.shared_scale)
-                y32 = Q.int8_conv(s8, k8f)
-                y = (y32.to(torch.float32) * post).to(q.dtype) + bias_f.to(q.dtype)
+                y = int8_conv.int8_conv_fused(s8, k8f, post, bias_f, dtype=q.dtype)
                 logits, deltas = y[..., : 2 * self.k], y[..., 2 * self.k:]
             else:
                 if q is not None:  # calibration: one range over all levels

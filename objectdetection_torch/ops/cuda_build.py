@@ -11,7 +11,7 @@ all started together). Libraries go to ``objectdetection_torch/_build/``
 source is rebuilt and an unchanged one is reused.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false``: the NMS,
-ROIAlign, anchor-match, fused-block and ROIAlign-probe kernels must
+ROIAlign, anchor-match, fused-block, int8-conv and ROIAlign-probe kernels must
 reproduce their plain PyTorch versions bit for bit, and a multiply-add contracted into an FMA rounds once where
 PyTorch rounds twice.
 """
@@ -29,7 +29,7 @@ from typing import Dict, List
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNEL_SOURCES = ("anchor_match", "fused_block", "nms", "roi_align", "roi_probes")
+KERNEL_SOURCES = ("anchor_match", "fused_block", "int8_conv", "nms", "roi_align", "roi_probes")
 HOST_SOURCES = ("png_unfilter",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

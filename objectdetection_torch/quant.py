@@ -12,15 +12,18 @@ Port of ``objectdetection_tpu.quant``. Scheme (symmetric PTQ):
 - compute: an exact int8 × int8 → int32 product, then the epilogue
   ``(f32(y32) · post).to(dtype) + bias``.
 
-The integer product is a library call, as the JAX package leaves it to XLA:
-``torch._int_mm`` on the card (padded to its shape rules, never replaced by
-a float product), f32 products over chunks of 1024 input channels on the
-CPU (exact: no partial sum of a chunk can reach 2^24; the chunks add in
-int32). The JAX package's CPU path sums whole convs in f32, exact while the
-actual sums stay below 2^24, as they do at the tests' sizes. A 1×1 conv is
-a matmul over pixels (a stride-2 one slices first); a k×k conv gathers k·k
-shifted int8 slices (im2col, (dy, dx, ci)-major, the layout of an HWIO
-kernel).
+A conv's product and epilogue are one kernel on the card
+(``ops/int8_conv.py``, :meth:`QuantConv.fused`), which can also take the
+BatchNorm, residual, ReLU and requant that follow it. The dense product is
+a library call, as the JAX package leaves it to XLA: ``torch._int_mm`` on
+the card (padded to its shape rules, never replaced by a float product);
+on the CPU both are f32 products over chunks of 1024 input channels (exact:
+no partial sum of a chunk can reach 2^24; the chunks add in int32). The
+JAX package's CPU path sums whole convs in f32, exact while the actual sums
+stay below 2^24, as they do at the tests' sizes. The plain conv
+(:func:`int8_conv`) is a matmul over pixels for a 1×1 conv (a stride-2 one
+slices first); a k×k conv gathers k·k shifted int8 slices (im2col, (dy, dx,
+ci)-major, the layout of an HWIO kernel, which the kernel's taps follow).
 
 Layouts: float activations are NCHW tensors in channels_last memory, as
 everywhere in the port; int8 activations are NHWC contiguous tensors, so the
@@ -318,11 +321,19 @@ class QuantConv(_QuantLayer):
             x8, scale = x, in_scale
         else:
             x8, scale = quantize_nchw(x, act), act
-        k8, sw = self._qparams(scale)
-        y32 = int8_conv(x8, k8, self.stride, self.padding)
-        y = (y32.to(torch.float32) * self._post(scale, sw)).to(dt) + self.bias.to(dt)
-        y = nchw(y)
+        y = nchw(self.fused(x8, scale))
         return (y, (x8, scale)) if return_x8 else y
+
+    def fused(self, x8: torch.Tensor, scale: torch.Tensor, **epilogue) -> torch.Tensor:
+        """The int8 conv of ``x8`` (int8 NHWC, quantized with ``scale``) with
+        its epilogue, NHWC: the bias in the compute dtype, then what
+        ``epilogue`` asks of ``ops.int8_conv.int8_conv_fused`` (``bn``,
+        ``residual``, ``relu``, ``out_scale``)."""
+        from objectdetection_torch.ops import int8_conv as ic
+
+        k8, sw = self._qparams(scale)
+        return ic.int8_conv_fused(x8, k8, self._post(scale, sw), self.bias, self.stride,
+                                  self.padding, dtype=self.dtype, **epilogue)
 
 
 class QuantDense(_QuantLayer):

@@ -318,3 +318,279 @@ def test_whole_model_bias_correction_matches_jax():
             np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=0, atol=tol, err_msg=k)
         moved += int(not torch.equal(w, tfrozen[k]))
     assert moved > 50
+
+
+# ---------------------------------------------------------------- the fused int8 conv
+#
+# ops/int8_conv.py: int8_conv_fused_plain with each epilogue against the
+# unfused sequence the port ran before the epilogue was fused (QuantConv's
+# bias epilogue, FrozenBatchNorm on NCHW, the residual add, ReLU,
+# quantize_nchw), bit for bit; a model of csrc/int8_conv.cu's tap walk and
+# epilogue arithmetic against the plain version; the restructured int8
+# BottleneckBlock against its unfused chain; the counters on one call.
+
+# (kh, stride, padding, cin, cout, per_channel, epilogue, dtype): SAME at
+# stride 2 on 9x10 pads (1, 1) x (0, 1); cin 3 and 80 are no multiple of 16
+# or 64 (the kernel pads the first, and its K chunks cross taps at both);
+# cout 18 is the RPN head's
+FUSED_CASES = [
+    (3, 1, None, 16, 8, False, "bias", "bfloat16"),
+    (3, 2, None, 32, 18, True, "bias", "bfloat16"),
+    (3, 1, ((1, 2), (0, 1)), 16, 8, True, "bias", "float32"),
+    (7, 2, 3, 3, 16, False, "bias", "bfloat16"),
+    (1, 2, None, 48, 24, True, "proj", "bfloat16"),
+    (1, 1, None, 64, 64, True, "ab", "bfloat16"),
+    (3, 1, None, 80, 64, False, "ab", "bfloat16"),
+    (1, 1, None, 32, 64, True, "c_proj", "bfloat16"),
+    (1, 1, None, 32, 64, False, "c_id", "bfloat16"),
+    (1, 1, None, 32, 64, True, "c_id", "bfloat16"),
+    (3, 1, None, 16, 64, True, "c_id", "float32"),
+]
+
+
+def fused_case(kh, stride, padding, cin, cout, pc, epilogue, dtype, seed=11):
+    """(x8, k8, arguments of int8_conv_fused as a dict): sums of ~1 after
+    ``post``, BatchNorm near 1, scales that clip a few codes."""
+    from objectdetection_torch.ops import int8_conv as ic
+
+    g = torch.Generator().manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x8 = torch.randint(-128, 128, (2, 9, 10, cin), generator=g, dtype=torch.int8)
+    k8 = torch.randint(-127, 128, (cout, cin, kh, kh), generator=g, dtype=torch.int8)
+    post = torch.rand(cout, generator=g) * 2 / (128 * 64 * (kh * kh * cin) ** 0.5)
+    bias = torch.randn(cout, generator=g) * 0.1
+    scale = lambda: (torch.rand(cout, generator=g) + 0.5) * 3 if pc else torch.tensor(2.0)
+    kw = dict(stride=stride, padding=padding, dtype=dt)
+    if epilogue != "bias":
+        kw["bn"] = (torch.rand(cout, generator=g) + 0.5, torch.randn(cout, generator=g) * 0.1)
+    if epilogue in ("ab", "c_proj", "c_id"):
+        kw.update(relu=True, out_scale=scale())
+    ho, wo = ic.Q.int8_conv(x8, k8, stride, padding).shape[1:3]
+    if epilogue == "c_proj":
+        kw["residual"] = (torch.randn(2, ho, wo, cout, generator=g) * 2).to(dt)
+    if epilogue == "c_id":
+        kw["residual"] = (torch.randint(-128, 128, (2, ho, wo, cout), generator=g,
+                                        dtype=torch.int8), scale())
+    return x8, k8, post, bias, kw
+
+
+def unfused_chain(x8, k8, post, bias, stride=1, padding=None, bn=None, residual=None,
+                  relu=False, out_scale=None, dtype=torch.bfloat16):
+    """The ops the port ran before the epilogue was fused, in NCHW as it ran
+    them: QuantConv's int8 path, FrozenBatchNorm, the residual add, ReLU and
+    quantize_nchw."""
+    from objectdetection_torch.models.backbone import FrozenBatchNorm
+
+    y32 = tq.int8_conv(x8, k8, stride, padding)
+    y = tq.nchw((y32.to(torch.float32) * post).to(dtype) + bias.to(dtype))
+    if bn is not None:
+        mod = FrozenBatchNorm(k8.shape[0])
+        mod.folded = lambda: bn
+        y = mod(y)
+    if isinstance(residual, tuple):
+        y = y + tq.nchw(tq.dequantize_act(residual[0], residual[1], dtype))
+    elif residual is not None:
+        y = y + tq.nchw(residual)
+    if relu:
+        y = torch.nn.functional.relu(y)
+    if out_scale is not None:
+        return tq.quantize_nchw(y, out_scale)
+    return tq.nhwc(y)
+
+
+def kernel_model(x8, k8, post, bias, stride=1, padding=None, bn=None, residual=None,
+                 relu=False, out_scale=None, dtype=torch.bfloat16):
+    """csrc/int8_conv.cu in PyTorch: the A matrix gathered chunk by chunk
+    (64 bytes of K, four 16-byte pieces) along each piece's (dy, dx, ci)
+    walk, zero where a tap leaves the image or K ends; the kernel's [N][K]
+    weights (Cin zero-padded to 16); exact sums; the epilogue on the
+    wrapper's vectors in the kernel's order of f32 operations and roundings."""
+    from objectdetection_torch.ops import int8_conv as ic
+
+    b, h, w, cin = x8.shape
+    n, _, kh, kw = k8.shape
+    pad_c = (-cin) % 16
+    c = cin + pad_c
+    x = torch.nn.functional.pad(x8, (0, pad_c)).to(torch.int64)
+    wmat = torch.nn.functional.pad(k8, (0, 0, 0, 0, 0, pad_c)).permute(0, 2, 3, 1).reshape(n, -1)
+    k_len = kh * kw * c
+    t_, b_, l_, r_ = tq.conv_pads(padding, h, w, kh, stride)
+    ho, wo = (h + t_ + b_ - kh) // stride + 1, (w + l_ + r_ - kw) // stride + 1
+    m = torch.arange(b * ho * wo)
+    img, oy, ox = m // (ho * wo), (m % (ho * wo)) // wo, m % wo
+    iy0, ix0 = oy * stride - t_, ox * stride - l_
+    chunks = -(-k_len // 64)
+    a = torch.zeros(m.numel(), chunks * 64, dtype=torch.int64)
+    for piece in range(4):
+        kk = piece * 16
+        tap = kk // c
+        ci, dy, dx = kk - tap * c, tap // kw, tap % kw
+        for kt in range(chunks):
+            iy, ix = iy0 + dy, ix0 + dx
+            ok = (kk < k_len) & (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+            rows = x[img, iy.clamp(0, h - 1), ix.clamp(0, w - 1), ci:ci + 16]
+            a[:, kt * 64 + piece * 16: kt * 64 + piece * 16 + 16] = rows * ok[:, None]
+            kk, ci = kk + 64, ci + 64
+            while ci >= c:
+                ci -= c
+                dx += 1
+                if dx == kw:
+                    dx, dy = 0, dy + 1
+    wfull = torch.zeros(n, chunks * 64, dtype=torch.int64)
+    wfull[:, :k_len] = wmat
+    acc = a @ wfull.t()
+    assert int(acc.abs().max()) < 2 ** 31
+    post_v, bias_v, inv, shift, rs, f = ic._vectors(n, x8.device, dtype, post, bias, bn,
+                                                    residual, out_scale)
+    f32 = torch.float32
+    rnd = (lambda v: v) if dtype == f32 else (lambda v: v.to(torch.bfloat16).to(f32))
+    y = rnd(acc.to(torch.int32).to(f32) * post_v)
+    y = rnd(y + bias_v)
+    if bn is not None:
+        y = rnd(rnd(y * inv) + shift)
+    if isinstance(residual, tuple):
+        y = rnd(y + rnd(residual[0].reshape(-1, n).to(f32) * rs))
+    elif residual is not None:
+        y = rnd(y + residual.reshape(-1, n).to(f32))
+    if relu:
+        y = torch.where(y < 0, torch.zeros_like(y), y)
+    if out_scale is not None:
+        y = torch.clamp(torch.round(y * f), -128, 127).to(torch.int8)
+    else:
+        y = y.to(dtype)
+    return y.view(b, ho, wo, n)
+
+
+@pytest.mark.parametrize("case", FUSED_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_int8_conv_fused_plain_equals_unfused_chain(case):
+    from objectdetection_torch.ops import int8_conv as ic
+
+    x8, k8, post, bias, kw = fused_case(*case)
+    got = ic.int8_conv_fused(x8, k8, post, bias, **kw)  # the CPU runs the plain version
+    want = unfused_chain(x8, k8, post, bias, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    if got.dtype == torch.int8:  # codes spread, a few clip
+        assert len(torch.unique(got)) > 20
+
+
+@pytest.mark.parametrize("case", FUSED_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_int8_conv_kernel_model_equals_plain(case):
+    from objectdetection_torch.ops import int8_conv as ic
+
+    x8, k8, post, bias, kw = fused_case(*case, seed=5)
+    want = ic.int8_conv_fused_plain(x8, k8, post, bias, **kw)
+    assert torch.equal(kernel_model(x8, k8, post, bias, **kw), want)
+
+
+def test_int8_conv_tile_plan_and_cell_convs():
+    from objectdetection_torch.ops import int8_conv as ic
+
+    assert [ic.tile(10 ** 6, n) for n in (18, 32, 64, 256, 2048)] == [
+        (128, 32), (128, 32), (256, 64), (128, 128), (128, 128)]
+    assert ic.tile(3000, 256) == (128, 64)  # 24 x 2 blocks of 128 x 128: fewer than FILL
+    assert ic.tile(30000, 64) == (128, 64)  # 118 blocks of 256 x 64
+    convs = ic.mask_rcnn_convs(96)
+    int8_out = sum(c[-1] for c in convs if c[-2] in ("ab", "c_proj", "c_id"))
+    assert (sum(c[-1] for c in convs), int8_out) == (125, 99)
+    assert {c[-2] for c in convs} == set(ic.EPILOGUES)
+    ops = sum(ic.conv_bound(*c[1:8])[0] * c[-1] for c in convs)
+    assert 70.0e12 < ops < 70.2e12  # perfbench/counts.py: 41.3 + 19.9 + 8.9 TOP
+
+
+SMALL_INT8 = dict(image_shape=(64, 64, 3), image_min_dim=64, image_max_dim=64,
+                  pre_nms_rois_count=128, post_nms_rois_training=48,
+                  post_nms_rois_inference=32, max_gt_objects=4, quantized_inference=True,
+                  detection_min_threshold=0.0, detection_post_nms_instances=16)
+
+
+def _small_int8_state(dtype, per_channel):
+    """e2e_small (R50, 64²) quantized: seeded weights with every backbone
+    BatchNorm drawn (the residual branches' last scales small, as
+    chip_smoke.randomized_params), the port's calibration on two images,
+    frozen. Returns (config, frozen state dict, images)."""
+    from objectdetection_torch import convert
+    from objectdetection_torch.config import SHAPES_CONFIG as T_SHAPES
+
+    cfg = T_SHAPES.replace(**SMALL_INT8, compute_dtype=dtype, per_channel_acts=per_channel)
+    params = convert.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(9)
+    for name in sorted(params):
+        mod, _, leaf = name.rpartition(".")
+        if f"{mod}.var" not in params or not mod.startswith("fpn.resnet."):
+            continue
+        n = params[name].shape
+        lo, hi = (0.05, 0.15) if mod.endswith("2c") else (0.5, 1.5)
+        params[name] = {"scale": lambda: lo + (hi - lo) * torch.rand(n, generator=g),
+                        "bias": lambda: 0.1 * torch.randn(n, generator=g),
+                        "mean": lambda: 0.1 * torch.randn(n, generator=g),
+                        "var": lambda: 0.5 + 1.5 * torch.rand(n, generator=g)}[leaf]()
+    images = np.random.RandomState(7).uniform(-60, 60, (2, 64, 64, 3)).astype(np.float32)
+    cal = tq.calibrate_variables(params, images, cfg, batch_size=2, device="cpu")
+    return cfg, tq.freeze_weights(cal), torch.from_numpy(images)
+
+
+def unfused_block(block, x):
+    """An int8 BottleneckBlock as it ran before its epilogues were fused:
+    QuantConv (bias epilogue), then BatchNorm, ReLU, the residual and
+    quantize_nchw as separate ops."""
+    import torch.nn.functional as F
+
+    cn, bnn = block.names
+    m = block._modules
+    x8, sx = x
+    if block.projection:
+        shortcut = m[bnn + "1"](m[cn + "1"](x8, in_scale=sx))
+    else:
+        shortcut = tq.nchw(tq.dequantize_act(x8, sx, block.quant.dtype))
+    y = F.relu(m[bnn + "2a"](m[cn + "2a"](x8, in_scale=sx)))
+    y = F.relu(m[bnn + "2b"](m[cn + "2b"](y)))
+    y = m[bnn + "2c"](m[cn + "2c"](y))
+    return tq.quantize_nchw(F.relu(y + shortcut), block.out_scale), block.out_scale
+
+
+@pytest.mark.parametrize("dtype,per_channel", [("bfloat16", False), ("bfloat16", True),
+                                               ("float32", True)])
+def test_int8_block_chain_equals_unfused_blocks(dtype, per_channel):
+    from torch.func import functional_call
+
+    from objectdetection_torch.detector import build_model
+
+    cfg, frozen, images = _small_int8_state(dtype, per_channel)
+    resnet = build_model(cfg).fpn.resnet
+    sub = {k[len("fpn.resnet."):]: v for k, v in frozen.items() if k.startswith("fpn.resnet.")}
+    seen = []
+
+    def hook(module, args, out):
+        want = unfused_block(module, args[0])
+        assert torch.equal(out[0], want[0]) and out[1] is want[1]
+        seen.append(len(torch.unique(out[0])))
+
+    handles = [resnet._modules[n].register_forward_hook(hook)
+               for names in resnet.stages for n in names]
+    x = images.permute(0, 3, 1, 2).to(getattr(torch, dtype)).contiguous(
+        memory_format=torch.channels_last)
+    try:
+        with torch.inference_mode():
+            functional_call(resnet, sub, (x,))
+    finally:
+        for h in handles:
+            h.remove()
+    assert len(seen) == 16 and min(seen) > 10  # every R50 block, codes spread
+
+
+def test_int8_conv_counters_over_one_call():
+    from objectdetection_torch import detector, metrics
+    from objectdetection_torch.ops import int8_conv as ic
+
+    cfg, frozen, images = _small_int8_state("bfloat16", True)
+    windows = torch.tensor([[0.0, 0.0, 64.0, 64.0]] * 2)
+    before = ic.launches
+    with torch.inference_mode(), metrics.collect("cpu") as rec:
+        detector.forward_inference(frozen, images, windows, cfg)
+    rec.resolve()
+    convs = ic.mask_rcnn_convs(2, 64, 5, cfg.detection_post_nms_instances)
+    int8_out = sum(c[-1] for c in convs if c[-2] in ("ab", "c_proj", "c_id"))
+    assert (rec.counters["int8_conv.launches"], rec.counters["int8_conv.int8_out"]) == (
+        sum(c[-1] for c in convs), int8_out) == (74, 48)
+    assert ic.launches == before  # the CPU ran the plain version
