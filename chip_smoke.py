@@ -12,8 +12,9 @@ and prints no result:
    TF32 is turned off for the comparisons;
 2. NMS kernels against their plain version, survivor tables identical, at
    the two serving shapes (6000 -> 1000 proposals, 1000 -> 100 detections,
-   summed in the kernel line), the training shape (6000 -> 2000) and a
-   sparse 6000 -> 1000 whose budget stops the sweep after a few tiles;
+   summed in the kernel line), the training shape (6000 -> 2000), a
+   sparse 6000 -> 1000 whose budget stops the sweep after a few tiles, and
+   the published RetinaNet's (5000 rows of 80 classes -> 100 at IoU 0.5);
 3. ROIAlign kernel against its plain version at the COCO pyramid shapes, f32
    (bit-equal) and bf16 (stated tolerance), box stage and mask stage; then
    on boxes outside the map (a NaN box, a box left of and above image 0's P2
@@ -129,7 +130,13 @@ and prints no result:
    ``make_infer_fn`` (NMS once a batch, class-aware, sorted, 1000 -> 100),
    in f32 the detections of the kernel and the plain NMS on the same logits
    identical, and 3 steps of ``make_retinanet_train_step`` (anchor matching
-   over 261,888 anchors × 100 GT once a step). Every NMS and anchor-match
+   over 261,888 anchors × 100 GT once a step); (d) the published RetinaNet
+   (``RetinaNetConfig``: P3-P7, 9 anchors a location, R101-FPN, 81 classes,
+   1024², bf16) the same way: ``make_infer_fn`` at score threshold 0 (NMS
+   once a batch over each level's top 1000 (anchor, class) pairs, 5000 rows
+   an image of 80 classes, unsorted, 0.5, -> 100), in f32 the detections of
+   the kernel and the plain NMS on the same logits identical, and 3 training
+   steps (anchor matching over 196,416 anchors once a step). Every NMS and anchor-match
    call of the phase is recorded and held against its plain version on its
    own inputs (survivor tables identical, matches exact); NMS at 12000 ->
    2000 and each anchor-match shape are timed beside their bounds. ms a
@@ -265,6 +272,7 @@ NMS_CASES = (
     ("detections", 1000, 81, 24, 12, 0.3, 100, True),
     ("training", 6000, 1, 0, 12, 0.7, 2000, False),
     ("proposals-sparse", 6000, 1, 0, 600, 0.7, 1000, False),
+    ("retinanet", 5000, 80, 0, 12, 0.5, 100, False),
 )
 TRAIN_KERNELS = ("nms", "roi_align", "roi_align_backward", "anchor_match")
 # the ResNet stages at 1024² (H, W, C3, C1) and their identity blocks in R101
@@ -2908,32 +2916,32 @@ def frcnn_phase(device, card, calls):
             fail(f"faster rcnn training: state.step {state.step}")
 
 
-def retinanet_phase(device, card, calls):
-    """11(c): RetinaNet at COCO_CONFIG (R101-FPN, 81 classes, 1024², bf16)."""
+def retinanet_family(name, cfg, device, card, calls):
+    """11(c)-(d): RetinaNet at ``cfg`` (R101-FPN, 81 classes, 1024², bf16):
+    forward, detections against the plain NMS in f32, training steps."""
     import torch
 
-    from objectdetection_torch.config import COCO_CONFIG
+    from objectdetection_torch.anchors import config_anchors
     from objectdetection_torch.convert import init_retinanet_params
     from objectdetection_torch.models import retinanet as rn
     from objectdetection_torch.ops import nms
 
-    cfg = COCO_CONFIG
     params = init_retinanet_params(cfg, torch.Generator().manual_seed(0), device)
     batch = train_batch(cfg, device)
     infer = rn.make_infer_fn(cfg, score_threshold=0.0)
     t0 = time.perf_counter()
     with recorded_inputs(calls):
-        det = driven("retinanet forward", lambda: infer(params, batch.images), {"nms": 1})
+        det = driven(f"{name} forward", lambda: infer(params, batch.images), {"nms": 1})
     first = (time.perf_counter() - t0) * 1e3
     if det.shape != (BATCH, cfg.detection_post_nms_instances, 6) or not bool(
             torch.isfinite(det).all()):
-        fail(f"retinanet detections: shape {tuple(det.shape)} or not finite")
+        fail(f"{name} detections: shape {tuple(det.shape)} or not finite")
     ms = time_host_ms(lambda: infer(params, batch.images), REPS)
     wall, busy, _ = profiled_ms(lambda: infer(params, batch.images))
-    log(f"retinanet (R101-FPN 1024² bf16, B={BATCH}): {int((det[..., 5] > 0).sum())} "
-        f"detections; first batch {first:.1f} ms, {ms:.1f} ms a batch; profiled batch wall "
-        f"{wall:.1f} ms, device busy {busy:.1f} ms ({100 * busy / wall:.1f}%); launches NMS 1 "
-        f"a batch [{card}]")
+    log(f"{name} (R101-FPN P{cfg.fpn_levels[0]}-P{cfg.fpn_levels[-1]} 1024² bf16, B={BATCH}, "
+        f"{len(config_anchors(cfg))} anchors): {int((det[..., 5] > 0).sum())} detections; first "
+        f"batch {first:.1f} ms, {ms:.1f} ms a batch; profiled batch wall {wall:.1f} ms, device "
+        f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%); launches NMS 1 a batch [{card}]")
 
     # in f32, the detections of the kernel and the plain path on the same logits
     cfg32 = cfg.replace(compute_dtype="float32")
@@ -2946,26 +2954,29 @@ def retinanet_phase(device, card, calls):
         finally:
             nms.suppress = saved
     if not torch.equal(det_k, det_p):
-        fail("retinanet f32: detections differ between the kernel and the plain path")
-    log(f"retinanet f32: detections == plain on the same logits "
+        fail(f"{name} f32: detections differ between the kernel and the plain path")
+    log(f"{name} f32: detections == plain on the same logits "
         f"({int((det_k[..., 5] > 0).sum())} rows)")
     del logits, deltas
 
     step, init_state = rn.make_retinanet_train_step(cfg)
     with recorded_inputs(calls):
-        state = train_family("retinanet", step, init_state(params), [batch], card,
+        state = train_family(name, step, init_state(params), [batch], card,
                              {"nms": 0, "anchor_match": 1})
     if state.count != FAMILY_STEPS + 2:
-        fail(f"retinanet training: count {state.count}")
+        fail(f"{name} training: count {state.count}")
 
 
 def families_phase(device, card):
     """11: the Faster R-CNN and RetinaNet families; then NMS and anchor
     matching against their plain versions on the inputs the phase gave them."""
+    from objectdetection_torch.config import COCO_CONFIG, RetinaNetConfig
+
     t0 = time.perf_counter()
     calls = []
     frcnn_phase(device, card, calls)
-    retinanet_phase(device, card, calls)
+    retinanet_family("retinanet", COCO_CONFIG, device, card, calls)
+    retinanet_family("retinanet published", RetinaNetConfig(), device, card, calls)
     check_recorded(calls, card)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 

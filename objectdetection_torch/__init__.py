@@ -8,7 +8,9 @@ Three families on an NVIDIA Hopper card, each served and trained:
 - Faster R-CNN (VGG16, ZF anchors): ``models.faster_rcnn.make_infer_fn``
   and ``faster_rcnn_train.make_train_step``;
 - RetinaNet (ResNet + FPN): ``models.retinanet.make_infer_fn`` and
-  ``models.retinanet.make_retinanet_train_step``.
+  ``models.retinanet.make_retinanet_train_step``; the JAX package's head
+  on a ``DetectorConfig``, the published one (P3–P7, 9 anchors a location,
+  the per-level decode) on a ``RetinaNetConfig``.
 
 Mask R-CNN also runs data- and tensor-parallel on ``torch.distributed``
 (``parallel``: one process a device, NCCL on the card), and ``cli
@@ -28,4 +30,5 @@ from objectdetection_torch.config import (  # noqa: F401
     SHAPES_CONFIG,
     DetectorConfig,
     FasterRCNNConfig,
+    RetinaNetConfig,
 )

@@ -2,9 +2,12 @@
 
 A copy of ``objectdetection_tpu.anchors``: per level, a meshgrid of
 (scale × ratio) boxes swept over feature-map positions, concatenated across
-levels P2..P6 in (level, y, x, anchor) order and normalized with the
-``(h-1, w-1)`` convention. Anchors depend only on the config, so they are
-computed once in numpy and cached.
+the config's pyramid levels (P2..P6, or P3..P7 for a ``RetinaNetConfig``) in
+(level, y, x, anchor) order and normalized with the ``(h-1, w-1)``
+convention. A level's sizes are its scale times each of the config's
+``anchor_octaves`` (one, 1.0, but for RetinaNet's three), so the anchors of a
+location run in (ratio, octave) order, the ratio outer. Anchors depend only
+on the config, so they are computed once in numpy and cached.
 """
 
 from __future__ import annotations
@@ -61,14 +64,17 @@ def pyramid_anchors_pixel(
     ratios: Tuple[float, ...],
     strides: Tuple[int, ...],
     anchor_stride: int = 1,
+    octaves: Tuple[float, ...] = (1.0,),
 ) -> np.ndarray:
-    """All pyramid anchors in pixel coords, concatenated P2..P6: [A, 4]."""
+    """All pyramid anchors in pixel coords, concatenated level after level:
+    [A, 4]. A level's sizes are its scale times each of ``octaves``."""
     h, w = image_shape
     per_level = []
     for scale, stride in zip(scales, strides):
         fshape = (-(-h // stride), -(-w // stride))
         per_level.append(
-            anchors_for_level(scale, ratios, fshape, stride, anchor_stride)
+            anchors_for_level([scale * o for o in octaves], ratios, fshape, stride,
+                              anchor_stride)
         )
     return np.concatenate(per_level, axis=0)
 
@@ -79,9 +85,10 @@ def pyramid_anchors_normalized(
     ratios: Tuple[float, ...],
     strides: Tuple[int, ...],
     anchor_stride: int = 1,
+    octaves: Tuple[float, ...] = (1.0,),
 ) -> np.ndarray:
     """Normalized pyramid anchors [A, 4]."""
-    pix = pyramid_anchors_pixel(image_shape, scales, ratios, strides, anchor_stride)
+    pix = pyramid_anchors_pixel(image_shape, scales, ratios, strides, anchor_stride, octaves)
     return _norm_boxes_np(pix, image_shape)
 
 
@@ -94,6 +101,7 @@ def config_anchors(config: DetectorConfig, normalized: bool = True) -> np.ndarra
         tuple(config.rpn_anchor_ratios),
         tuple(config.backbone_strides),
         config.rpn_anchor_stride,
+        tuple(config.anchor_octaves),
     )
 
 

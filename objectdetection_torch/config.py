@@ -19,6 +19,13 @@ take effect with ``quantized_inference`` (the int8 serving path,
 Faster R-CNN (VGG16) configuration. It has no ``lr_schedule``: the family
 trains at a constant rate (:func:`objectdetection_torch.optim.update` with
 ``constant_lr=True``).
+
+:class:`RetinaNetConfig` has no JAX counterpart: RetinaNet as its paper
+publishes it (P3..P7, 9 anchors a location, the per-level decode): a
+``DetectorConfig`` with three fields more (``anchor_octaves``,
+``score_threshold``, ``pre_nms_per_level``) and the paper's defaults.
+``DetectorConfig`` itself keeps the JAX package's fields and defaults, and
+with them its RetinaNet.
 """
 
 from __future__ import annotations
@@ -115,9 +122,14 @@ class DetectorConfig:
     compat_reference_box_loss: bool = False
     train_append_gt: bool = False
 
+    # Not a field (the JAX package's field set stays whole): the sizes of one
+    # level's anchors are its scale times each octave, one here;
+    # RetinaNetConfig makes it a field.
+    anchor_octaves = (1.0,)
+
     @property
     def num_anchors_per_location(self) -> int:
-        return len(self.rpn_anchor_ratios)
+        return len(self.anchor_octaves) * len(self.rpn_anchor_ratios)
 
     @property
     def fpn_levels(self) -> Tuple[int, ...]:
@@ -167,6 +179,52 @@ SHAPES_CONFIG = DetectorConfig(
 )
 
 COCO_CONFIG = DetectorConfig()
+
+
+@dataclass(frozen=True)
+class RetinaNetConfig(DetectorConfig):
+    """RetinaNet as published (Lin et al., Focal Loss for Dense Object
+    Detection, arXiv:1708.02002, §4 and its "Inference" paragraph; Detectron's
+    ``retinanet_R-101-FPN``), where a ``DetectorConfig`` gives the JAX
+    package's RetinaNet (P2..P6, ``len(rpn_anchor_ratios)`` anchors, the best
+    class of each anchor before one global top-k).
+
+    - Pyramid P3..P7 (``fpn_levels``, strides 8..128): P3..P5 from the FPN's
+      C3..C5 laterals and 3×3 outputs, P6 a 3×3 stride-2 conv on C5, P7 ReLU
+      then a 3×3 stride-2 conv on P6; no P2.
+    - Anchors: ``rpn_anchor_scales`` (32..512) one a level, times each of
+      ``anchor_octaves`` (2^0, 2^(1/3), 2^(2/3)), at each of
+      ``rpn_anchor_ratios``: 9 a location, in (ratio, octave) order with the
+      ratio outer (``anchors.anchors_for_level``), as torchvision's
+      ``AnchorGenerator`` orders them (Detectron puts the octave outer).
+    - Inference: every (anchor, class) sigmoid score above
+      ``score_threshold``, at most ``pre_nms_per_level`` of them a level,
+      decoded with ``rpn_bbox_stddev`` (Detectron's box weights, 1, 1, 1, 1)
+      and clipped; the levels merged, then
+      class-aware NMS at ``detection_nms_threshold`` to
+      ``detection_post_nms_instances`` rows.
+    """
+
+    name: str = "retinanet"
+    backbone_strides: Tuple[int, ...] = (8, 16, 32, 64, 128)
+    rpn_anchor_scales: Tuple[float, ...] = (32, 64, 128, 256, 512)
+    anchor_octaves: Tuple[float, ...] = (1.0, 2 ** (1 / 3), 2 ** (2 / 3))
+    rpn_bbox_stddev: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
+    score_threshold: float = 0.05
+    pre_nms_per_level: int = 1000
+    detection_nms_threshold: float = 0.5
+    detection_post_nms_instances: int = 100
+
+    def __post_init__(self):
+        want = tuple(2 ** level for level in self.fpn_levels)
+        if tuple(self.backbone_strides) != want:
+            raise ValueError(f"RetinaNetConfig: backbone_strides {self.backbone_strides} "
+                             f"are not those of P3..P7, {want}")
+
+    @property
+    def fpn_levels(self) -> Tuple[int, ...]:
+        """Pyramid levels carrying anchors (P3..P7)."""
+        return tuple(range(3, 3 + len(self.backbone_strides)))
 
 
 @dataclass(frozen=True)

@@ -25,6 +25,21 @@ def top_k_stable(scores: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def top_k_stable_nonneg(scores: torch.Tensor, k: int):
+    """:func:`top_k_stable` for f32 scores ≥ 0 (probabilities; no NaN, no
+    −0.0) without sorting the whole axis: one ``torch.topk`` over int64 keys
+    that hold a score's bits above its reversed index, so no two keys tie
+    and the order is the stable sort's. For k much smaller than the axis
+    (RetinaNet's 1000 of 11.8 M pairs a level)."""
+    n = scores.shape[-1]
+    keys = scores.contiguous().view(torch.int32).to(torch.int64)
+    keys <<= 32
+    keys |= torch.arange(n - 1, -1, -1, device=scores.device)
+    top = torch.topk(keys, k, dim=-1).values
+    idx = (n - 1) - (top & 0xFFFFFFFF)
+    return torch.gather(scores, -1, idx), idx
+
+
 def proposal_layer(
     rpn_probs: torch.Tensor,
     rpn_deltas: torch.Tensor,

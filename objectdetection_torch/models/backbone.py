@@ -4,7 +4,10 @@ Port of ``objectdetection_tpu.models.backbone`` (``ResNetFPN``): bottleneck
 stages C2-C5 with frozen BatchNorm, 1×1 laterals + nearest 2× upsampling,
 3×3 output convs P2-P5, and P6 = P5 subsampled by 2. Module names are the
 flax scope names, so a converted flax tree loads by name
-(:mod:`objectdetection_torch.convert`).
+(:mod:`objectdetection_torch.convert`). With ``levels`` (3, .., 7) it is
+RetinaNet's published pyramid instead (no JAX counterpart, float only):
+P3-P5 as above without ``fpn_c2p2`` and ``fpn_p2``, ``fpn_p6`` a 3×3
+stride-2 conv on C5 and ``fpn_p7`` one on ReLU(P6).
 
 Float tensors run NCHW inside, in channels_last memory; the weights are
 kept in f32 and cast to the compute dtype at use, as the flax modules do.
@@ -315,26 +318,41 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+P2_P6, P3_P7 = (2, 3, 4, 5, 6), (3, 4, 5, 6, 7)
+
+
 class ResNetFPN(nn.Module):
-    """Image NCHW → (P2, P3, P4, P5, P6), each NCHW in the compute dtype.
+    """Image NCHW → the pyramid ``levels``, each NCHW in the compute dtype:
+    (P2, P3, P4, P5, P6) by default, or RetinaNet's (P3, .., P7).
 
     Quantized, the laterals take the stages' int8 outputs directly; with
     ``quantize_p2=False`` the finest level's two convs stay float.
     """
 
     def __init__(self, model: str = "resnet101", channels: int = 256, cin: int = 3,
-                 quant: Optional[Quant] = None, remat: bool = False):
+                 quant: Optional[Quant] = None, remat: bool = False,
+                 levels: Tuple[int, ...] = P2_P6):
         super().__init__()
+        levels = tuple(levels)
+        if levels not in (P2_P6, P3_P7):
+            raise ValueError(f"pyramid levels {levels}: P2..P6 or P3..P7")
+        if levels == P3_P7 and quant is not None:
+            raise ValueError("the int8 path serves the P2..P6 pyramid only")
         self.quant = quant
+        self.levels = levels
         self.resnet = ResNetBottomUp(model, cin, quant, remat)
         float_p2 = quant is not None and not quant.quantize_p2
-        for name, c in (("fpn_c5p5", 2048), ("fpn_c4p4", 1024),
-                        ("fpn_c3p3", 512), ("fpn_c2p2", 256)):
-            q = None if float_p2 and name == "fpn_c2p2" else quant
-            self.add_module(name, make_conv(q, c, channels, 1))
-        for name in ("fpn_p2", "fpn_p3", "fpn_p4", "fpn_p5"):
-            q = None if float_p2 and name == "fpn_p2" else quant
-            self.add_module(name, make_conv(q, channels, channels, 3))
+        from_c = [i for i in levels if i <= 5]  # the levels with a lateral
+        for i, c in zip((5, 4, 3, 2), (2048, 1024, 512, 256)):
+            if i in from_c:
+                q = None if float_p2 and i == 2 else quant
+                self.add_module(f"fpn_c{i}p{i}", make_conv(q, c, channels, 1))
+        for i in from_c:
+            q = None if float_p2 and i == 2 else quant
+            self.add_module(f"fpn_p{i}", make_conv(q, channels, channels, 3))
+        if levels == P3_P7:
+            self.fpn_p6 = Conv(2048, channels, 3, 2)
+            self.fpn_p7 = Conv(channels, channels, 3, 2)
 
     def _lat(self, name: str, c):
         conv = self._modules[name]
@@ -349,6 +367,10 @@ class ResNetFPN(nn.Module):
         m5 = self._lat("fpn_c5p5", c5)
         m4 = upsample2x_nearest(m5) + self._lat("fpn_c4p4", c4)
         m3 = upsample2x_nearest(m4) + self._lat("fpn_c3p3", c3)
+        if self.levels == P3_P7:
+            p6 = self.fpn_p6(c5)
+            return (self.fpn_p3(m3), self.fpn_p4(m4), self.fpn_p5(m5), p6,
+                    self.fpn_p7(F.relu(p6)))
         m2 = upsample2x_nearest(m3) + self._lat("fpn_c2p2", c2)
         p2 = self.fpn_p2(m2)
         p3 = self.fpn_p3(m3)

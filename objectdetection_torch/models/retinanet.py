@@ -2,13 +2,22 @@
 
 Port of ``objectdetection_tpu.models.retinanet``: class and box subnets
 (4× conv3×3(256) + relu, then a 3×3 output conv computed in f32) shared over
-P2–P6, the sigmoid focal loss, anchor assignment (IoU ≥ 0.5 positive, < 0.4
-background, the band between ignored, the best anchor of each valid GT
-forced positive) through the B3 kernel on the card, the losses, the
-class-aware detection postprocess through the B2 kernel, and the training
-step. Inputs carry the batch dimension; boxes are normalized
+the pyramid's levels, the sigmoid focal loss, anchor assignment (IoU ≥ 0.5
+positive, < 0.4 background, the band between ignored, the best anchor of
+each valid GT forced positive) through the B3 kernel on the card, the
+losses, the class-aware detection postprocess through the B2 kernel, and the
+training step. Inputs carry the batch dimension; boxes are normalized
 ``(y1, x1, y2, x2)`` as in the Mask R-CNN family, on the anchors of
 ``anchors.config_anchors``.
+
+Two configurations, one code path. A ``DetectorConfig`` gives the JAX
+package's RetinaNet: levels P2–P6, ``len(rpn_anchor_ratios)`` anchors a
+location, and a decode that takes each anchor's best class before one top-k
+over the image. A ``config.RetinaNetConfig`` gives the published one (Lin et
+al., arXiv:1708.02002): levels P3–P7 with P6 and P7 from C5, 9 anchors a
+location (class output 720 wide for COCO's 80 classes, box output 36), and
+the paper's decode of :func:`retinanet_detections`, level by level over
+(anchor, class) pairs.
 
 Entry points run on the card unless the caller asks for the CPU:
 :func:`make_infer_fn` and :func:`make_retinanet_train_step`. Weights come
@@ -19,7 +28,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,12 +36,12 @@ from torch import nn
 from torch.func import functional_call
 
 from objectdetection_torch import losses as losses_lib
-from objectdetection_torch import optim
-from objectdetection_torch.anchors import config_anchors
-from objectdetection_torch.config import DetectorConfig
+from objectdetection_torch import metrics, optim
+from objectdetection_torch.anchors import anchors_per_level_counts, config_anchors
+from objectdetection_torch.config import DetectorConfig, RetinaNetConfig
 from objectdetection_torch.convert import require_on, resolve_device, split_collections
 from objectdetection_torch.geometry import apply_box_deltas, clip_boxes, encode_box_deltas
-from objectdetection_torch.layers.proposals import top_k_stable
+from objectdetection_torch.layers.proposals import top_k_stable, top_k_stable_nonneg
 from objectdetection_torch.models.backbone import Conv, ResNetFPN
 from objectdetection_torch.models.mask_rcnn import compute_dtype
 from objectdetection_torch.ops import anchor_match as anchor_match_op
@@ -64,7 +73,8 @@ class RetinaSubnet(nn.Module):
 
 class RetinaNet(nn.Module):
     """images [B, H, W, 3] → class logits [B, A, C − 1] and box deltas
-    [B, A, 4], f32, rows in (level, y, x, anchor) order."""
+    [B, A, 4], f32, rows in (level, y, x, anchor) order over the config's
+    ``fpn_levels``."""
 
     def __init__(self, config: DetectorConfig):
         super().__init__()
@@ -73,24 +83,26 @@ class RetinaNet(nn.Module):
         dt = compute_dtype(cfg)
         c = cfg.fpn_channels
         k = cfg.num_anchors_per_location
-        self.fpn = ResNetFPN(cfg.backbone, c, cfg.image_shape[2])
+        self.fpn = ResNetFPN(cfg.backbone, c, cfg.image_shape[2], levels=cfg.fpn_levels)
         self.class_subnet = RetinaSubnet(k * (cfg.num_classes - 1), bias_init_value=PRIOR_BIAS,
                                          dtype=dt, cin=c)
         self.box_subnet = RetinaSubnet(k * 4, dtype=dt, cin=c)
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
-        if cfg.input_scale != 1.0:
-            images = images * cfg.input_scale
-        x = images.permute(0, 3, 1, 2).to(compute_dtype(cfg))
-        feats = self.fpn(x.contiguous(memory_format=torch.channels_last))
-        b = images.shape[0]
-        nc = cfg.num_classes - 1  # no background channel (sigmoid head)
-        logits, deltas = [], []
-        for fm in feats:
-            logits.append(self.class_subnet(fm).permute(0, 2, 3, 1).reshape(b, -1, nc))
-            deltas.append(self.box_subnet(fm).permute(0, 2, 3, 1).reshape(b, -1, 4))
-        return torch.cat(logits, dim=1), torch.cat(deltas, dim=1)
+        with metrics.span("odtorch.backbone"):
+            if cfg.input_scale != 1.0:
+                images = images * cfg.input_scale
+            x = images.permute(0, 3, 1, 2).to(compute_dtype(cfg))
+            feats = self.fpn(x.contiguous(memory_format=torch.channels_last))
+        with metrics.span("odtorch.retina_subnets"):
+            b = images.shape[0]
+            nc = cfg.num_classes - 1  # no background channel (sigmoid head)
+            logits, deltas = [], []
+            for fm in feats:
+                logits.append(self.class_subnet(fm).permute(0, 2, 3, 1).reshape(b, -1, nc))
+                deltas.append(self.box_subnet(fm).permute(0, 2, 3, 1).reshape(b, -1, 4))
+            return torch.cat(logits, dim=1), torch.cat(deltas, dim=1)
 
 
 @functools.lru_cache(maxsize=16)
@@ -180,45 +192,104 @@ def retinanet_losses(params: Dict[str, torch.Tensor], batch,
 
 
 def retinanet_detections(logits: torch.Tensor, deltas: torch.Tensor, config: DetectorConfig,
-                         score_threshold: float = 0.3, pre_nms: int = 1000) -> torch.Tensor:
-    """Decode the top ``pre_nms`` anchors by best class probability (a
-    stable sort) and run class-aware NMS on them in that order → [B, N, 6]
-    rows (y1, x1, y2, x2, class, score), zero-padded."""
+                         score_threshold: Optional[float] = None,
+                         pre_nms: Optional[int] = None) -> torch.Tensor:
+    """Detections from logits [B, A, C − 1] and deltas [B, A, 4] → [B, N, 6]
+    rows (y1, x1, y2, x2, class, score), zero-padded, N =
+    ``detection_post_nms_instances``.
+
+    A ``DetectorConfig`` (the JAX package's decode): the top ``pre_nms``
+    (1000) anchors by best class probability (a stable sort), those above
+    ``score_threshold`` (0.3) through class-aware NMS in that order.
+
+    A ``RetinaNetConfig`` (the paper's): on each level, every (anchor, class)
+    sigmoid score above ``score_threshold`` (the config's 0.05), at most the
+    top ``pre_nms`` (the config's ``pre_nms_per_level``, 1000) in a stable
+    order (pair index ``anchor · (C − 1) + class − 1`` within the level),
+    decoded with ``rpn_bbox_stddev`` and clipped to the image; the levels
+    merged, then class-aware NMS at ``detection_nms_threshold`` in a stable
+    descending order of score. Under ``metrics.collect`` it counts
+    ``retina_decode.candidates`` (the pairs kept into NMS) and
+    ``retina_decode.slots`` (B × the levels' caps)."""
+    per_level = isinstance(config, RetinaNetConfig)
+    if score_threshold is None:
+        score_threshold = config.score_threshold if per_level else 0.3
+    if pre_nms is None:
+        pre_nms = config.pre_nms_per_level if per_level else 1000
+    with metrics.span("odtorch.retina_decode"):
+        decode = decode_per_level if per_level else decode_best_class
+        boxes, scores, classes, valid = decode(logits, deltas, config, score_threshold, pre_nms)
+    with metrics.span("odtorch.retina_nms"):
+        res = non_max_suppression(boxes, scores, config.detection_post_nms_instances,
+                                  config.detection_nms_threshold, valid=valid,
+                                  class_ids=classes.to(torch.int32), assume_sorted=not per_level)
+        idx = res.indices.clamp(min=0)
+        out = torch.cat([
+            torch.gather(boxes, 1, idx[..., None].expand(*idx.shape, 4)),
+            torch.gather(classes, 1, idx)[..., None].to(torch.float32),
+            torch.gather(scores, 1, idx)[..., None],
+        ], dim=-1)
+        return torch.where(res.valid[..., None], out, torch.zeros_like(out))
+
+
+def _decode(anchors, deltas, stddev, ix):
+    """The boxes of anchors ``ix`` [B, k] with their deltas, clipped."""
+    b, k = ix.shape
+    boxes = apply_box_deltas(anchors[ix],
+                             torch.gather(deltas, 1, ix[..., None].expand(b, k, 4)) * stddev)
+    return clip_boxes(boxes, (0.0, 0.0, 1.0, 1.0))
+
+
+def decode_best_class(logits, deltas, config, score_threshold, pre_nms):
+    """(boxes, scores, classes, valid) [B, k]: the top ``pre_nms`` anchors by
+    best class probability, in score order."""
     anchors = torch.from_numpy(config_anchors(config)).to(logits.device)
     stddev = torch.tensor(config.rpn_bbox_stddev, dtype=torch.float32, device=logits.device)
-    b, a, _ = logits.shape
     probs = torch.sigmoid(logits)
     best = probs.amax(dim=-1)
     cls = torch.argmax(probs, dim=-1) + 1
-    k = min(pre_nms, a)
-    top, ix = top_k_stable(best, k)
-    boxes = apply_box_deltas(anchors[ix],
-                             torch.gather(deltas, 1, ix[..., None].expand(b, k, 4)) * stddev)
-    boxes = clip_boxes(boxes, (0.0, 0.0, 1.0, 1.0))
-    keep_cls = torch.gather(cls, 1, ix)
-    res = non_max_suppression(boxes, top, config.detection_post_nms_instances,
-                              config.detection_nms_threshold, valid=top > score_threshold,
-                              class_ids=keep_cls.to(torch.int32), assume_sorted=True)
-    idx = res.indices.clamp(min=0)
-    out = torch.cat([
-        torch.gather(boxes, 1, idx[..., None].expand(*idx.shape, 4)),
-        torch.gather(keep_cls, 1, idx)[..., None].to(torch.float32),
-        torch.gather(top, 1, idx)[..., None],
-    ], dim=-1)
-    return torch.where(res.valid[..., None], out, torch.zeros_like(out))
+    top, ix = top_k_stable(best, min(pre_nms, logits.shape[1]))
+    return _decode(anchors, deltas, stddev, ix), top, torch.gather(cls, 1, ix), \
+        top > score_threshold
 
 
-def make_infer_fn(config: DetectorConfig, score_threshold: float = 0.3, device="cuda"):
+def decode_per_level(logits, deltas, config, score_threshold, pre_nms):
+    """(boxes, scores, classes, valid) [B, Σ k_l]: each level's top
+    ``pre_nms`` (anchor, class) pairs, level after level."""
+    anchors = torch.from_numpy(config_anchors(config)).to(logits.device)
+    stddev = torch.tensor(config.rpn_bbox_stddev, dtype=torch.float32, device=logits.device)
+    b, _, nc = logits.shape
+    boxes, scores, classes = [], [], []
+    start = 0
+    for n in anchors_per_level_counts(config):
+        probs = torch.sigmoid(logits[:, start:start + n]).reshape(b, n * nc)
+        top, pair = top_k_stable_nonneg(probs, min(pre_nms, n * nc))
+        boxes.append(_decode(anchors, deltas, stddev, pair // nc + start))
+        scores.append(top)
+        classes.append(pair % nc + 1)
+        start += n
+    scores = torch.cat(scores, dim=1)
+    valid = scores > score_threshold
+    if metrics.collecting():
+        metrics.count("retina_decode.candidates", valid.sum())
+        metrics.count("retina_decode.slots", valid.numel())
+    return torch.cat(boxes, dim=1), scores, torch.cat(classes, dim=1), valid
+
+
+def make_infer_fn(config: DetectorConfig, score_threshold: Optional[float] = None,
+                  device="cuda"):
     """Returns ``infer_fn(params, images) -> detections [B, N, 6]`` on
-    ``device``. ``images`` are moved there; ``params`` must live there."""
+    ``device`` (:func:`retinanet_detections`; ``score_threshold`` None is
+    the config's). ``images`` are moved there; ``params`` must live there."""
     dev = resolve_device(device)
 
     def infer_fn(params, images):
-        require_on(dev, params, "params")
-        images = torch.as_tensor(images, dtype=torch.float32, device=dev)
-        with torch.inference_mode():
-            logits, deltas = apply(params, images, config)
-            return retinanet_detections(logits, deltas, config, score_threshold)
+        with metrics.span("odtorch.infer"):
+            require_on(dev, params, "params")
+            images = torch.as_tensor(images, dtype=torch.float32, device=dev)
+            with torch.inference_mode():
+                logits, deltas = apply(params, images, config)
+                return retinanet_detections(logits, deltas, config, score_threshold)
 
     return infer_fn
 
