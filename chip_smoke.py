@@ -24,7 +24,10 @@ and prints no result:
    ``backward_tolerance``, each with NaNs in the plain version's places;
 4. end to end: COCO_CONFIG (ResNet-101 + FPN, 1024², bf16) with seeded random
    weights answers 3 requests of batch 2 through ``make_infer_fn``; the kernel
-   launch counters are read around that run; then where a batch's time goes
+   launch counters are read around that run (the epilogue pass of
+   ``ops/conv_epilogue.py`` 112 times a request), and a fourth request holds
+   each of its 112 passes against the plain version at the call; then where a
+   batch's time goes
    (CUDA-event spans per stage, the entry points, one profiled batch); then
    runs at ``detection_min_threshold=0.0``, bf16 and f32, are held stage by
    stage against the plain path on the card;
@@ -93,7 +96,9 @@ and prints no result:
    memory; (d) ``cli infer`` with masks on one PNG: the ``*_det.png`` it
    writes decodes at the input's shape, ``paste_detection_masks`` gives
    [N, H, W] masks; (e) the launch counters around (b)-(d): NMS twice a
-   request, the box-stage ROIAlign once, the mask stage in (d) only. Server
+   request, the box-stage ROIAlign once, the mask stage in (d) only, the
+   epilogue pass 112 times a float request (none in (c)), each held against
+   the plain version at the call in (b). Server
    latency, client wall, warm-up and peak memory are printed with the
    card's name and power limit;
 10. the training and evaluation entry points: (a) ``cli train --steps 20
@@ -136,7 +141,9 @@ and prints no result:
    once a batch over each level's top 1000 (anchor, class) pairs, 5000 rows
    an image of 80 classes, unsorted, 0.5, -> 100), in f32 the detections of
    the kernel and the plain NMS on the same logits identical, and 3 training
-   steps (anchor matching over 196,416 anchors once a step). Every NMS and anchor-match
+   steps (anchor matching over 196,416 anchors once a step); each forward
+   runs the epilogue pass 112 times, each held against the plain version at
+   the call. Every NMS and anchor-match
    call of the phase is recorded and held against its plain version on its
    own inputs (survivor tables identical, matches exact); NMS at 12000 ->
    2000 and each anchor-match shape are timed beside their bounds. ms a
@@ -170,7 +177,8 @@ and prints no result:
    just before it and read just after (per batch: NMS twice, ROIAlign
    twice with masks or once without, in the int8 epilogues on the int8
    path, 29 fused blocks on the fused path, 125 int8 convs on the int8 path
-   and 38 on the fused one; per calibration chunk NMS and
+   and 38 on the fused one, 112 epilogue passes on the float path; per
+   calibration chunk NMS and
    the float ROIAlign at both stages once): (a) ``bench.main`` at its
    defaults (int8 per-channel, batch 96, R101 1024², masks) with ``--iters
    2 --warmup 1`` and an artifact directory: its one stdout line is the
@@ -180,7 +188,7 @@ and prints no result:
    served, leaf for leaf; (b) ``--no-int8``, (c) ``--fused-bottleneck
    --no-per-channel`` and (d) ``--no-masks --no-int8`` (through
    ``cli.main(["bench", ...])``), each at batch 8; in (a)-(d) every NMS,
-   ROIAlign, fused-block and int8 conv call of the last (profiled) batch
+   ROIAlign, fused-block, int8 conv and epilogue call of the last (profiled) batch
    and of the first calibration chunk is held against its plain version on
    its own inputs, the convs as they are called (bit-equal; bf16 ROIAlign
    within ``bf16_tolerance``), and the largest gap goes into the kernel
@@ -216,13 +224,27 @@ and prints no result:
    ``examples/torch_quickstart.py --device cuda`` prints 5 finite losses,
    and ``examples/torch_visualize_rpn_targets.py --device cuda`` writes a
    PNG that decodes at 128×128 with the counts of the same script on the
-   CPU (both subprocesses).
+   CPU (both subprocesses);
+15. the float conv's epilogue (``ops/conv_epilogue.py``): (a) the kernel
+   bit-equal to its plain version at every distinct site shape
+   (``conv_epilogue.resnet_fpn_sites``) of a bf16 R-101 Mask R-CNN call
+   (P2-P6) and a RetinaNet call (P3-P7) at batch 2, in bf16 and f32, in
+   place, one launch a call; (b) a whole seeded bf16 R-101 ``ResNetFPN`` at
+   1024², batch 2, both pyramids: the inference forward (112 launches a
+   call) bit-equal to the chain before the pass (the same module with
+   gradients on: F.conv2d's bias, then each op apart); (c) at batch 96, each
+   site's kernel bit-equal to the plain chain, then its device ms beside the
+   plain chain's and its byte bound (failing above 105% of it), summed over
+   a call (CUDA events around back-to-back calls); the kernel's device ms in
+   one profiled inference call; the backbone's ms and peak memory before and
+   after (the chain, then the pass, in turns).
 
 The line before the last is the kernel table as JSON (launches counted on
 the path that runs each kernel: the training paths of phases 6 and 12 and
 phase 12's inference paths for the four of phases 2–6, the int8 serving paths for the fused block and the
 int8 ROIAlign, the probes' entry points for the three probe kernels, and
-phases 13 and 14's paths for the kernels they run; phase 11's launches are
+phases 13 and 14's paths for the kernels they run, and for the epilogue
+pass phases 12-15's; phases 4, 9, 10 and 11's launches are
 checked and logged, not tabled); the last line is ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
 """
@@ -630,38 +652,44 @@ def plain_path():
     """Route every kernel wrapper to its plain version (for comparison): the
     plain ROIAlign is differentiated by autograd, so its gradient is the
     plain backward too."""
-    from objectdetection_torch.ops import anchor_match, fused_block, int8_conv, nms, roi_align
+    from objectdetection_torch.ops import (anchor_match, conv_epilogue, fused_block, int8_conv,
+                                           nms, roi_align)
 
     saved = (nms.suppress, roi_align.batched_multilevel_roi_align, anchor_match.anchor_match,
-             fused_block.fused_identity_block_int8, int8_conv.int8_conv_fused)
+             fused_block.fused_identity_block_int8, int8_conv.int8_conv_fused,
+             conv_epilogue.conv_epilogue)
     nms.suppress = nms.suppress_plain
     roi_align.batched_multilevel_roi_align = roi_align.batched_multilevel_roi_align_plain
     anchor_match.anchor_match = anchor_match.anchor_match_plain
     fused_block.fused_identity_block_int8 = fused_block.fused_identity_block_int8_plain
     int8_conv.int8_conv_fused = int8_conv.int8_conv_fused_plain
+    conv_epilogue.conv_epilogue = conv_epilogue.conv_epilogue_plain
     try:
         yield
     finally:
         (nms.suppress, roi_align.batched_multilevel_roi_align, anchor_match.anchor_match,
-         fused_block.fused_identity_block_int8, int8_conv.int8_conv_fused) = saved
+         fused_block.fused_identity_block_int8, int8_conv.int8_conv_fused,
+         conv_epilogue.conv_epilogue) = saved
 
 
 def launch_counts():
-    from objectdetection_torch.ops import anchor_match, fused_block, int8_conv, nms, roi_align
+    from objectdetection_torch.ops import (anchor_match, conv_epilogue, fused_block, int8_conv,
+                                           nms, roi_align)
 
     return {"nms": nms.launches, "roi_align": roi_align.launches,
             "roi_align_backward": roi_align.backward_launches,
             "anchor_match": anchor_match.launches,
             "roi_align_int8": roi_align.int8_launches, "fused_block": fused_block.launches,
-            "int8_conv": int8_conv.launches}
+            "int8_conv": int8_conv.launches, "conv_epilogue": conv_epilogue.launches}
 
 
 def reset_launch_counts():
-    from objectdetection_torch.ops import anchor_match, fused_block, int8_conv, nms, roi_align
+    from objectdetection_torch.ops import (anchor_match, conv_epilogue, fused_block, int8_conv,
+                                           nms, roi_align)
 
     nms.launches = roi_align.launches = roi_align.backward_launches = 0
     anchor_match.launches = roi_align.int8_launches = fused_block.launches = 0
-    int8_conv.launches = 0
+    int8_conv.launches = conv_epilogue.launches = 0
 
 
 def rms(a, b) -> float:
@@ -877,7 +905,7 @@ def end_to_end(device):
     from objectdetection_torch import convert, detector
     from objectdetection_torch.config import COCO_CONFIG
     from objectdetection_torch.models.mask_rcnn import MaskRCNN
-    from objectdetection_torch.ops import nms, roi_align
+    from objectdetection_torch.ops import conv_epilogue, nms, roi_align
 
     cfg = COCO_CONFIG
     t0 = time.perf_counter()
@@ -905,13 +933,15 @@ def end_to_end(device):
     requests = [request() for _ in range(3)]
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    convs = FLOAT_CONVS[cfg.backbone]
     for i, (images, windows) in enumerate(requests):
-        before = (nms.launches, roi_align.launches)
+        before = (nms.launches, roi_align.launches, conv_epilogue.launches)
         t0 = time.perf_counter()
         det = infer(params, images, windows)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        step = (nms.launches - before[0], roi_align.launches - before[1])
+        step = (nms.launches - before[0], roi_align.launches - before[1],
+                conv_epilogue.launches - before[2])
         n = cfg.detection_post_nms_instances
         shapes = {
             "boxes": (BATCH, n, 4), "class_ids": (BATCH, n), "scores": (BATCH, n),
@@ -924,16 +954,21 @@ def end_to_end(device):
             if t.is_floating_point() and not bool(torch.isfinite(t).all()):
                 fail(f"e2e request {i}: {key} not finite")
         # one NMS launch per stage covers every image of the batch
-        if step[0] < 2 or step[1] < 2:
-            fail(f"e2e request {i}: kernel launches {step} (nms, roi_align); want >= 2 each")
+        if step[0] < 2 or step[1] < 2 or step[2] != convs:
+            fail(f"e2e request {i}: kernel launches {step} (nms, roi_align, conv_epilogue); "
+                 f"want >= 2, >= 2, {convs}")
         log(f"e2e request {i}: {ms:.1f} ms, {int(det.valid.sum())} detections, "
-            f"launches nms {step[0]} roi_align {step[1]}")
+            f"launches nms {step[0]} roi_align {step[1]} conv_epilogue {step[2]}")
     launches = launch_counts()
     log(f"e2e peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for name in ("nms", "roi_align"):
+    for name in ("nms", "roi_align", "conv_epilogue"):
         if launches[name] == 0:
             fail(f"the inference path never launched the {name} kernel")
     log(f"e2e launches over 3 requests: {launches}")
+    calls = []
+    with recorded_inputs(calls, ("conv_epilogue",)):
+        infer(params, *requests[0])
+    check_epilogues("e2e request 0 again", calls, convs)
 
     stage_breakdown(model, params, infer, *requests[0], device)
     kernel_vs_plain(model, params, request, device)
@@ -2053,9 +2088,15 @@ def serving_phase(device, card):
         dtypes = sorted({str(v.dtype) for v in server.variables.values()})
         log(f"serving (float): started in {start_s:.2f} s (init, cast to {dtypes}, warm-up "
             f"{server.warmup_seconds:.2f} s) [{card}]")
-        launches, _, _ = drive_server(server, "float", images, pngs, card, concurrent=True)
-        want = {"nms": 2 * (requests + 2), "roi_align": requests + 2, "roi_align_int8": 0}
+        calls = []
+        with recorded_inputs(calls, ("conv_epilogue",)):
+            launches, _, _ = drive_server(server, "float", images, pngs, card, concurrent=True)
+        convs = FLOAT_CONVS[COCO_CONFIG.backbone]
+        want = {"nms": 2 * (requests + 2), "roi_align": requests + 2, "roi_align_int8": 0,
+                "conv_epilogue": convs * (requests + 2)}
         check_launches("float", launches, want)
+        # the served requests, a batch of one each, and the direct calls beside them
+        check_epilogues("serving (float)", calls, convs * (2 * requests + 2))
         tagged_requests(server, images[2], card)
         log(f"serving (float): peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"[{card}]")
@@ -2082,7 +2123,7 @@ def serving_phase(device, card):
             server.variables = frozen  # the direct calls use the state still in memory
             launches, _, _ = drive_server(server, "int8", images, pngs, card, concurrent=False)
             check_launches("int8", launches, {"nms": 2 * requests, "roi_align": 0,
-                                              "roi_align_int8": requests})
+                                              "roi_align_int8": requests, "conv_epilogue": 0})
             log(f"serving (int8): peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
                 f"GiB [{card}]")
             stop(servers)
@@ -2096,7 +2137,7 @@ def serving_phase(device, card):
             (res,) = cli.main(["infer", path])
             infer_s = time.perf_counter() - t0
             check_launches("infer", launch_counts(), {"nms": 2, "roi_align": 2,
-                                                      "roi_align_int8": 0})
+                                                      "roi_align_int8": 0, "conv_epilogue": convs})
             with open(res["out"], "rb") as f:
                 drawn = decode_image(f.read())
             if drawn.shape != images[0].shape:
@@ -2134,7 +2175,21 @@ def check_launches(name, launches, want):
     got = {k: launches[k] for k in want}
     if got != want:
         fail(f"serving ({name}): kernel launches {got}, want {want}")
-    log(f"serving ({name}): launches {got} (NMS twice a request, ROIAlign once a stage)")
+    log(f"serving ({name}): launches {got} (NMS twice a request, ROIAlign once a stage, the "
+        "epilogue pass once a float conv)")
+
+
+def check_epilogues(name, calls, want: int):
+    """The ``conv_epilogue`` calls ``recorded_inputs`` held against the plain
+    version at the call: ``want`` of them, each bit-equal."""
+    shapes = {}
+    for _, shape, same in calls:
+        if not same:
+            fail(f"{name}: conv_epilogue {shape}: kernel not bit-equal to plain")
+        shapes[shape] = shapes.get(shape, 0) + 1
+    if len(calls) != want:
+        fail(f"{name}: {len(calls)} epilogue passes recorded, want {want}")
+    log(f"{name}: the epilogue pass == plain at each of its {want} calls ({len(shapes)} shapes)")
 
 
 
@@ -2220,7 +2275,8 @@ def shapes_training(device, card, tmp):
     eval_batches = evals * 2
     want = {"nms": SHAPES_STEPS + 2 * eval_batches, "anchor_match": SHAPES_STEPS,
             "roi_align": 2 * SHAPES_STEPS + 2 * eval_batches,
-            "roi_align_backward": 2 * SHAPES_STEPS}
+            "roi_align_backward": 2 * SHAPES_STEPS,
+            "conv_epilogue": FLOAT_CONVS["resnet50"] * eval_batches}
     got = {k: launches[k] for k in want}
     if evals != 2 or got != want or state.step != SHAPES_STEPS:
         fail(f"shapes train: {evals} evaluations, step {state.step}, launches {got}, want {want}")
@@ -2442,7 +2498,8 @@ def coco_evaluation(device, card, ann, img_dir):
         launches = launch_counts()
     finally:
         coco_eval.DetectionEvaluator = base
-    want = {"nms": 2, "roi_align": 1, "roi_align_backward": 0}
+    want = {"nms": 2, "roi_align": 1, "roi_align_backward": 0,
+            "conv_epilogue": FLOAT_CONVS[cfg.backbone]}
     got = {k: launches[k] for k in want}
     if got != want:
         fail(f"coco eval: launches {got}, want {want} (one padded batch of 8)")
@@ -2483,7 +2540,8 @@ def coco_evaluation(device, card, ann, img_dir):
         launches = launch_counts()
     finally:
         coco_eval.DetectionEvaluator = base
-    want = {"nms": 2 * n4 // 8, "roi_align": n4 // 8, "roi_align_backward": 0}
+    want = {"nms": 2 * n4 // 8, "roi_align": n4 // 8, "roi_align_backward": 0,
+            "conv_epilogue": FLOAT_CONVS[cfg.backbone] * n4 // 8}
     got = {k: launches[k] for k in want}
     same = len(rows) == n4 and all(
         np.array_equal(r[0], f[0]) and np.array_equal(r[1], f[1])
@@ -2574,11 +2632,19 @@ RECORDABLE = {
     "fused_block": ("fused_block", "fused_identity_block_int8",
                     "fused_identity_block_int8_plain"),
     "int8_conv": ("int8_conv", "int8_conv_fused", "int8_conv_fused_plain"),
+    "conv_epilogue": ("conv_epilogue", "conv_epilogue", "conv_epilogue_plain"),
 }
 # kinds held against their plain version at the call itself (a batch's 125
-# convs' inputs and outputs would not fit on the card together): recorded as
-# (kind, a description of the shapes, whether kernel == plain)
-CHECKED_AT_CALL = ("int8_conv",)
+# int8 convs' or 112 epilogues' inputs and outputs would not fit on the card
+# together): recorded as (kind, a description of the shapes, whether kernel
+# == plain)
+CHECKED_AT_CALL = ("int8_conv", "conv_epilogue")
+# kinds whose kernel writes its result into its first argument: the plain
+# version gets a copy of it, taken before the kernel runs
+IN_PLACE = ("conv_epilogue",)
+# the float convs of one ResNetFPN inference call, each with one epilogue
+# pass on the card (R-101 and R-50, either pyramid)
+FLOAT_CONVS = {"resnet101": 112, "resnet50": 61}
 
 
 @contextlib.contextmanager
@@ -2601,9 +2667,10 @@ def recorded_inputs(calls, kinds=("nms", "anchor_match"), armed=lambda: True):
         sig = inspect.signature(fn)
 
         def call(*args, **kwargs):
+            first = args[0].clone() if armed() and kind in IN_PLACE else args[0]
             out = fn(*args, **kwargs)
             if armed() and kind in CHECKED_AT_CALL:
-                want = plain(*args, **kwargs)
+                want = plain(first, *args[1:], **kwargs)
                 shape = f"{tuple(args[0].shape)} -> {tuple(out.shape)} {str(out.dtype)[6:]}"
                 calls.append((kind, shape, out.dtype == want.dtype and torch.equal(out, want)))
             elif armed():
@@ -2930,8 +2997,11 @@ def retinanet_family(name, cfg, device, card, calls):
     batch = train_batch(cfg, device)
     infer = rn.make_infer_fn(cfg, score_threshold=0.0)
     t0 = time.perf_counter()
-    with recorded_inputs(calls):
-        det = driven(f"{name} forward", lambda: infer(params, batch.images), {"nms": 1})
+    convs, epilogues = FLOAT_CONVS[cfg.backbone], []
+    with recorded_inputs(calls), recorded_inputs(epilogues, ("conv_epilogue",)):
+        det = driven(f"{name} forward", lambda: infer(params, batch.images),
+                     {"nms": 1, "conv_epilogue": convs})
+    check_epilogues(f"{name} forward", epilogues, convs)
     first = (time.perf_counter() - t0) * 1e3
     if det.shape != (BATCH, cfg.detection_post_nms_instances, 6) or not bool(
             torch.isfinite(det).all()):
@@ -2987,7 +3057,8 @@ PARALLEL_STEPS = 2  # training steps of each parallel path
 # the launches of one training step with masks: NMS and anchor matching
 # once, ROIAlign and its gradient at the box and the mask stage
 STEP_LAUNCHES = {"nms": 1, "anchor_match": 1, "roi_align": 2, "roi_align_backward": 2}
-INFER_LAUNCHES = {"nms": 2, "roi_align": 2}  # a batch with masks
+# a batch with masks (R-101's float convs)
+INFER_LAUNCHES = {"nms": 2, "roi_align": 2, "conv_epilogue": 112}
 TP_RTOL = 1e-4  # the TP step's total_loss: the bound of tests/test_parallel.py's TP test
 NOISE_SEED = 3  # of the generator 12(b)'s target noise is drawn from
 RANK_TIMEOUT = 600  # seconds for 12(b)-(c)'s two ranks
@@ -3520,7 +3591,7 @@ def bench_launches(argv, calibrated: bool, recorded: bool = False):
                                                          // max(1, args.batch // 16))
     stages = 1 if args.no_masks else 2
     want = dict.fromkeys(("nms", "roi_align", "roi_align_int8", "fused_block", "anchor_match",
-                          "roi_align_backward", "int8_conv"), 0)
+                          "roi_align_backward", "int8_conv", "conv_epilogue"), 0)
     want["nms"] = 2 * batches + chunks
     want["roi_align_int8" if args.int8 else "roi_align"] = stages * batches
     want["roi_align"] += 2 * chunks
@@ -3528,6 +3599,8 @@ def bench_launches(argv, calibrated: bool, recorded: bool = False):
         want["fused_block"] = 29 * batches
     if args.int8:
         want["int8_conv"] = int8_conv_launches(cfg.fused_bottleneck) * batches
+    else:  # the float backbone's epilogue passes (calibration runs the int8 network's)
+        want["conv_epilogue"] = FLOAT_CONVS[cfg.backbone] * batches
     return want
 
 
@@ -3649,7 +3722,8 @@ def run_bench(name, argv, calibrated, card, tally, errs, states=None, command="b
         stack.enter_context(patched(quant, "_float_pipeline",
                                     lambda real: nth_call_armed(real, 0, flag)))
         stack.enter_context(recorded_inputs(calls, ("nms", "roi_align", "fused_block",
-                                                    "int8_conv"), lambda: flag[0]))
+                                                    "int8_conv", "conv_epilogue"),
+                                            lambda: flag[0]))
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             t0 = time.perf_counter()
             line = driven(name, entry[command], want, tally)
@@ -4093,13 +4167,15 @@ def stage_launches(tool, argv, recorded: bool = False):
     chunks = -(-args.batch // max(1, args.batch // 16)) if cfg.quantized_inference else 0
     chunks = min(chunks, 1) if recorded else chunks
     want = dict.fromkeys(("nms", "roi_align", "roi_align_int8", "fused_block", "anchor_match",
-                          "roi_align_backward"), 0)
+                          "roi_align_backward", "conv_epilogue"), 0)
     want["nms"] = 4 + chunks + calls * sum((d >= 1) + (d >= 3) for d in depths)
     want["roi_align_int8" if cfg.quantized_inference else "roi_align"] = 4 + calls * sum(
         (d >= 2) + (d >= 4) for d in depths)
     want["roi_align"] += 2 * chunks
     if cfg.fused_bottleneck:
         want["fused_block"] = 29 * (2 + calls * len(depths))
+    if not cfg.quantized_inference:  # every prefix runs the float backbone
+        want["conv_epilogue"] = FLOAT_CONVS[cfg.backbone] * (2 + calls * len(depths))
     return want
 
 
@@ -4123,8 +4199,8 @@ def stage_phase(card, tally, errs):
                                         lambda real: nth_call_armed(real, 0, flag)))
             stack.enter_context(patched(quant, "_float_pipeline",
                                         lambda real: nth_call_armed(real, 0, flag)))
-            stack.enter_context(recorded_inputs(calls, ("nms", "roi_align", "fused_block"),
-                                                lambda: flag[0]))
+            stack.enter_context(recorded_inputs(calls, ("nms", "roi_align", "fused_block",
+                                                        "conv_epilogue"), lambda: flag[0]))
             with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
                 t0 = time.perf_counter()
                 res = driven(f"14(c) {name}", lambda: tool.main(argv),
@@ -4221,6 +4297,183 @@ def last_slice_phase(card):
     return tally, errs
 
 
+# ---------------------------------------------------------------- phase 15
+
+
+def seeded_fpn(levels, device, seed: int = 0):
+    """R-101 ``ResNetFPN`` at ``levels`` in bf16 on the card: He-normal conv
+    kernels, biases 0.1·N(0, 1), every BatchNorm drawn as
+    :func:`randomized_params` draws them (the residual branches' last scales
+    in [0.05, 0.15])."""
+    import torch
+
+    from objectdetection_torch.models import backbone as bb
+
+    gen = torch.Generator().manual_seed(seed)
+    fpn = bb.ResNetFPN("resnet101", 256, levels=levels)
+    for name, mod in fpn.named_modules():
+        if isinstance(mod, bb.Conv):
+            fan_in = mod.weight[0].numel()
+            mod.weight.data = torch.randn(mod.weight.shape, generator=gen) * (2 / fan_in) ** 0.5
+            mod.bias.data = 0.1 * torch.randn(mod.bias.shape, generator=gen)
+        elif isinstance(mod, bb.FrozenBatchNorm):
+            n = mod.scale.numel()
+            lo, hi = (0.05, 0.15) if name.endswith("2c") else (0.5, 1.5)
+            mod.scale.copy_(lo + (hi - lo) * torch.rand(n, generator=gen))
+            mod.bias.copy_(0.1 * torch.randn(n, generator=gen))
+            mod.mean.copy_(0.1 * torch.randn(n, generator=gen))
+            mod.var.copy_(0.5 + 1.5 * torch.rand(n, generator=gen))
+    return fpn.to(device=device, dtype=torch.bfloat16)
+
+
+def epilogue_case(site, dtype, device, gen, vec_dtype=None):
+    """A conv output without its bias at ``site`` (``resnet_fpn_sites``) and
+    its epilogue's operands: (y, bias, bn, residual, coarse, relu); the
+    per-channel vectors in ``vec_dtype`` (default f32, cast by the wrapper)."""
+    import torch
+
+    _, b, c, h, w, kind, _ = site
+    cl = lambda t: t.to(dtype).contiguous(memory_format=torch.channels_last)
+    vec = lambda t: t.to(vec_dtype or torch.float32)
+    y = cl(4 * torch.randn(b, c, h, w, device=device, generator=gen))
+    bias = vec(torch.randn(c, device=device, generator=gen))
+    bn = None
+    if kind.startswith("bn"):
+        bn = (vec(0.5 + torch.rand(c, device=device, generator=gen)),
+              vec(0.1 * torch.randn(c, device=device, generator=gen)))
+    residual = coarse = None
+    if kind == "bn_res_relu":
+        residual = cl(2 * torch.randn(b, c, h, w, device=device, generator=gen))
+    if kind == "top_down":
+        coarse = cl(2 * torch.randn(b, c, h // 2, w // 2, device=device, generator=gen))
+    return y, bias, bn, residual, coarse, kind in ("bn_relu", "bn_res_relu")
+
+
+def distinct_sites(batch: int) -> dict:
+    """The sites of R-101's two pyramids by (B, C, H, W, kind), and the calls
+    of each in a P2-P6 and in a P3-P7 call."""
+    from objectdetection_torch.models import backbone as bb
+    from objectdetection_torch.ops import conv_epilogue
+
+    sites = {}
+    for levels in (bb.P2_P6, bb.P3_P7):
+        for site in conv_epilogue.resnet_fpn_sites(batch, levels=levels):
+            key = site[1:6]
+            calls = sites.setdefault(key, [site, {}])[1]
+            calls[levels] = calls.get(levels, 0) + site[-1]
+    return sites
+
+
+def conv_epilogue_phase(device, card):
+    """15: the float conv's epilogue kernel against its plain version, the
+    whole bf16 ResNetFPN against the chain before the pass, and the times
+    at batch 96. Returns the kernel line's record."""
+    import torch
+
+    from objectdetection_torch.models import backbone as bb
+    from objectdetection_torch.ops import conv_epilogue as ce
+    from objectdetection_torch.probes import common
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(15)
+    launched = ce.launches
+    for site, _ in distinct_sites(BATCH).values():
+        for dtype in (torch.bfloat16, torch.float32):
+            y, bias, bn, res, coarse, relu = epilogue_case(site, dtype, device, gen)
+            want = ce.conv_epilogue_plain(y.clone(), bias, bn, res, coarse, relu)
+            before = ce.launches
+            got = ce.conv_epilogue(y, bias, bn, res, coarse, relu)
+            torch.cuda.synchronize()
+            if ce.launches != before + 1 or got.data_ptr() != y.data_ptr() or not same(got, want):
+                fail(f"15(a) conv_epilogue {site[0]} {tuple(y.shape)} {site[5]} {dtype}: "
+                     f"{int((got != want).sum())} of {got.numel()} outputs differ from plain")
+    log(f"15(a) conv_epilogue == plain, in place, at the {len(distinct_sites(BATCH))} distinct "
+        f"site shapes of R-101 P2-P6 and P3-P7 at B={BATCH}, bf16 and f32 "
+        f"({ce.launches - launched} launches)")
+
+    x = (20 * torch.randn(BATCH, 3, 1024, 1024, device=device, generator=gen)).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    for levels in (bb.P2_P6, bb.P3_P7):
+        fpn = seeded_fpn(levels, device)
+        with torch.enable_grad():  # the chain before the pass: nothing requires a gradient
+            chain = fpn(x)
+        before = ce.launches
+        with torch.inference_mode():
+            fused = fpn(x)
+        torch.cuda.synchronize()
+        if ce.launches - before != 112:
+            fail(f"15(b) P{levels[0]}-P{levels[-1]}: {ce.launches - before} launches, want 112")
+        for i, (a, b) in enumerate(zip(fused, chain)):
+            if not same(a, b):
+                fail(f"15(b) P{levels[0]}-P{levels[-1]} level {i}: {int((a != b).sum())} of "
+                     f"{a.numel()} values differ from the chain before the pass")
+        log(f"15(b) bf16 R-101 ResNetFPN P{levels[0]}-P{levels[-1]} at 1024², B={BATCH}: "
+            f"inference == the chain before the pass on all 5 levels (112 launches; P"
+            f"{levels[0]} |max| {float(fused[0].abs().max()):.3g}, finite "
+            f"{bool(all(torch.isfinite(f).all() for f in fused))})")
+        del fpn, chain, fused
+
+    # (c) at batch 96: each site's ms, the plain chain's and the bound, on CUDA events around
+    # back-to-back calls (the profiler, after the phases before, can lose records)
+    rec = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0,
+           "library_ms": None}
+    totals = {levels: [0.0, 0.0, 0.0] for levels in (bb.P2_P6, bb.P3_P7)}
+    for site, calls in distinct_sites(96).values():
+        case = epilogue_case(site, torch.bfloat16, device, gen, vec_dtype=torch.bfloat16)
+        want = ce.conv_epilogue_plain(case[0].clone(), *case[1:])
+        if not same(ce.conv_epilogue(*case), want):
+            fail(f"15(c) conv_epilogue {site[0]} B=96 {site[5]}: kernel differs from plain")
+        del want
+        k_ms = time_ms(lambda: ce.conv_epilogue(*case), 5)
+        p_ms = time_ms(lambda: ce.conv_epilogue_plain(*case), 5)
+        bound = ce.site_bytes(site) / PEAK_BYTES * 1e3
+        for levels, n in calls.items():
+            for j, v in enumerate((k_ms, p_ms, bound)):
+                totals[levels][j] += n * v
+        share = 100 * bound / k_ms
+        log(f"15(c) {site[0]} B=96 {site[2]}x{site[3]}x{site[4]} {site[5]} "
+            f"(x{calls.get(bb.P2_P6, 0)} P2-P6, x{calls.get(bb.P3_P7, 0)} P3-P7): kernel == "
+            f"plain; kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f}, bound {bound:.4f} ({share:.1f}% of 3.35 TB/s)")
+        if share > 105:  # faster than HBM allows: the bytes or the time are wrong
+            fail(f"15(c) {site[0]}: {share:.1f}% of the byte bound")
+        del case
+    for levels, (k_ms, p_ms, bound) in totals.items():
+        log(f"15(c) one P{levels[0]}-P{levels[-1]} call at B=96 (112 epilogues): kernel "
+            f"{k_ms:.2f} ms, plain {p_ms:.2f}, bound {bound:.2f} (bytes)")
+    rec["ms"], rec["plain_ms"], rec["bytes_ms"] = totals[bb.P2_P6]
+    x = (20 * torch.randn(96, 3, 1024, 1024, device=device, generator=gen)).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    for levels in (bb.P2_P6, bb.P3_P7):
+        fpn = seeded_fpn(levels, device)
+        call = lambda: fpn(x)
+        ms, peak = {"chain": [], "pass": []}, {}
+        for name in ("chain", "pass", "pass", "chain"):
+            with torch.enable_grad() if name == "chain" else torch.inference_mode():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms[name].append(time_ms(call, 2, warmup=1))
+                peak[name] = torch.cuda.max_memory_allocated()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.inference_mode(), torch.profiler.profile(activities=acts,
+                                                             acc_events=True) as prof:
+            call()
+            torch.cuda.synchronize()
+        split = common.per_call_ms(prof, 1)
+        mine = sum(v for k, v in split.items() if "conv_epilogue" in k)
+        profiled = (f"the pass's kernel {mine:.2f} ms of {sum(split.values()):.2f} ms device time "
+                    "in one profiled call" if split else "the profiler saw no device time")
+        log(f"15(c) bf16 R-101 ResNetFPN P{levels[0]}-P{levels[-1]} B=96: backbone "
+            f"{min(ms['chain']):.2f} ms before (the chain), {min(ms['pass']):.2f} after (the pass)"
+            f" [{', '.join(f'{v:.2f}' for v in ms['chain'])} | "
+            f"{', '.join(f'{v:.2f}' for v in ms['pass'])}]; peak {peak['chain']} -> "
+            f"{peak['pass']} B; {profiled} [{card}]")
+        del fpn
+    rec["launches"] = ce.launches - launched
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -4266,6 +4519,8 @@ def main() -> None:
     slice_launches, slice_errs = last_slice_phase(card)
     for k, v in slice_launches.items():
         launches[k] += v
+    epi_rec = conv_epilogue_phase(device, card)
+    launches["conv_epilogue"] += epi_rec["launches"]
     for k, v in slice_errs.items():
         bench_errs[k] = max(bench_errs.get(k, 0.0), v)
 
@@ -4285,6 +4540,8 @@ def main() -> None:
          "objectdetection_tpu/ops/fused_block.py:98"),
         ("int8_conv", conv8_rec, "objectdetection_torch/csrc/int8_conv.cu",
          "none: XLA's int8 conv (objectdetection_tpu/quant.py:15)"),
+        ("conv_epilogue", epi_rec, "objectdetection_torch/csrc/conv_epilogue.cu",
+         "none: XLA fuses it into the convs (objectdetection_tpu/models/backbone.py)"),
         ("patch_dma_probe", probe_recs["patch_dma_probe"],
          "objectdetection_torch/csrc/roi_probes.cu", "benchmarks/patch_dma_probe.py:30"),
         ("roi_inner_probe", probe_recs["roi_inner_probe"],

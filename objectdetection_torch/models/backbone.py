@@ -24,6 +24,15 @@ requant in their epilogues (:mod:`objectdetection_torch.ops.int8_conv`).
 int8 kernels. Inside ``quant.calibration()`` every block runs the float
 forward and records its ranges instead.
 
+Every conv run in float goes through :func:`float_conv` with what follows
+it. A float :class:`Conv` in inference (gradients off) on the card runs on
+cuDNN without its bias, and one hand-written pass over its output applies the
+bias, BatchNorm, the residual or the FPN's top-down add, and ReLU
+(:mod:`objectdetection_torch.ops.conv_epilogue`), bit-equal to those ops;
+training, the CPU and a QuantConv's float path run the ops apart. The pass
+takes channels_last memory, so the models hand the backbone
+:func:`channels_last` images.
+
 With ``remat`` (the Mask R-CNN family's ``remat_backbone``) each bottleneck
 block run with gradients on is rematerialized: its activations are freed
 after the forward and recomputed in the backward pass, as flax's
@@ -40,8 +49,9 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from objectdetection_torch import metrics
 from objectdetection_torch import quant as Q
-from objectdetection_torch.ops import fused_block
+from objectdetection_torch.ops import conv_epilogue, fused_block
 
 # identity blocks after the stage-4 conv block
 RESNET_STAGE4_BLOCKS = {"resnet50": 5, "resnet101": 22}
@@ -92,6 +102,60 @@ class Conv(nn.Module):
             return F.conv2d(x, w, bias, stride=self.stride, padding=(t, l))
         # SAME at a stride > 1 pads the odd row and column at the high end
         return F.conv2d(F.pad(x, (l, r, t, b)), w, bias, stride=self.stride)
+
+    def unbiased(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv without its bias, which :func:`float_conv` adds after."""
+        k = self.weight.shape[-1]
+        t, b, l, r = Q.conv_pads(self.padding, x.shape[2], x.shape[3], k, self.stride)
+        w = self.weight.to(x.dtype)
+        if t == b and l == r:
+            return F.conv2d(x, w, None, stride=self.stride, padding=(t, l))
+        return F.conv2d(F.pad(x, (l, r, t, b)), w, None, stride=self.stride)
+
+
+def one_pass(x: torch.Tensor) -> bool:
+    """Whether :func:`float_conv` in inference runs the epilogue on ``x`` as
+    one pass: on the card, where cuDNN adds a conv's bias as a pass of its
+    own too."""
+    return x.is_cuda
+
+
+def float_conv(conv: nn.Module, x: torch.Tensor, bn: Optional[FrozenBatchNorm] = None,
+               residual: Optional[torch.Tensor] = None, coarse: Optional[torch.Tensor] = None,
+               relu: bool = False) -> torch.Tensor:
+    """A conv of ResNetFPN run in float and what follows it: its bias,
+    BatchNorm ``bn``, ``residual`` (a tensor of the output's shape) or
+    ``coarse`` (the coarser FPN level, nearest-2× upsampled), ReLU. A float
+    :class:`Conv` in inference counts in ``backbone.float_convs``, and where
+    :func:`one_pass` holds runs cuDNN without its bias and then one pass over
+    the output (:func:`conv_epilogue.conv_epilogue`). Otherwise, and for a
+    QuantConv's float path (calibration, a bf16 stage), the ops apart."""
+    if isinstance(conv, Conv) and not torch.is_grad_enabled():  # a float conv in inference
+        if metrics.collecting():
+            metrics.count("backbone.float_convs", 1)
+        if one_pass(x):
+            return conv_epilogue.conv_epilogue(conv.unbiased(x), conv.bias,
+                                               bn.folded() if bn is not None else None,
+                                               residual, coarse, relu)
+    y = conv(x)
+    if bn is not None:
+        y = bn(y)
+    if residual is not None:
+        y = y + residual
+    if coarse is not None:
+        y = upsample2x_nearest(coarse) + y
+    return F.relu(y) if relu else y
+
+
+def channels_last(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [B, C, H, W] with the strides of channels_last memory, copied
+    where its own differ. A batch of one taken as ``image[None]`` has a zero
+    batch stride: it passes as channels_last contiguous, but cuDNN answers
+    it in NCHW memory, which the epilogue pass does not take."""
+    b, c, h, w = x.shape
+    if x.stride() != (h * w * c, 1, w * c, c):
+        x = x.clone(memory_format=torch.channels_last)
+    return x
 
 
 def max_pool_same(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:
@@ -221,11 +285,11 @@ class BottleneckBlock(nn.Module):
             if self._fusable(x):
                 return self._fused(x)
             return self._int8_chain(x)
-        shortcut = m[bnn + "1"](m[cn + "1"](x)) if self.projection else x
-        y = F.relu(m[bnn + "2a"](m[cn + "2a"](x)))
-        y = F.relu(m[bnn + "2b"](m[cn + "2b"](y)))
-        y = m[bnn + "2c"](m[cn + "2c"](y))
-        out = F.relu(y + shortcut)
+        conv = lambda s, x, **kw: float_conv(m[cn + s], x, m[bnn + s], **kw)
+        shortcut = conv("1", x) if self.projection else x
+        y = conv("2a", x, relu=True)
+        y = conv("2b", y, relu=True)
+        out = conv("2c", y, residual=shortcut, relu=True)
         if q is None:
             return out
         if bf16_serve and not self.quantize_out:
@@ -296,8 +360,7 @@ class ResNetBottomUp(nn.Module):
             self.stages.append(names)
 
     def forward(self, x: torch.Tensor):
-        x = F.relu(self.bn_conv1(self.conv1(x)))
-        x = max_pool_same(x)
+        x = max_pool_same(float_conv(self.conv1, x, self.bn_conv1, relu=True))
         q = self.quant
         if q is not None:
             if Q.calibrating():
@@ -362,19 +425,27 @@ class ResNetFPN(nn.Module):
             return conv(Q.nchw(Q.dequantize_act(c[0], c[1], self.quant.dtype)))
         return conv(c[0], in_scale=c[1])
 
+    def _top(self, name: str, c, coarse: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Conv ``name`` on ``c``, plus the ``coarse`` level nearest-2× upsampled."""
+        if self.quant is None:
+            return float_conv(self._modules[name], c, coarse=coarse)
+        y = self._lat(name, c)
+        return y if coarse is None else upsample2x_nearest(coarse) + y
+
     def forward(self, images: torch.Tensor):
         c2, c3, c4, c5 = self.resnet(images)
-        m5 = self._lat("fpn_c5p5", c5)
-        m4 = upsample2x_nearest(m5) + self._lat("fpn_c4p4", c4)
-        m3 = upsample2x_nearest(m4) + self._lat("fpn_c3p3", c3)
+        top = self._top
+        m5 = top("fpn_c5p5", c5)
+        m4 = top("fpn_c4p4", c4, m5)
+        m3 = top("fpn_c3p3", c3, m4)
         if self.levels == P3_P7:
-            p6 = self.fpn_p6(c5)
-            return (self.fpn_p3(m3), self.fpn_p4(m4), self.fpn_p5(m5), p6,
-                    self.fpn_p7(F.relu(p6)))
-        m2 = upsample2x_nearest(m3) + self._lat("fpn_c2p2", c2)
-        p2 = self.fpn_p2(m2)
-        p3 = self.fpn_p3(m3)
-        p4 = self.fpn_p4(m4)
-        p5 = self.fpn_p5(m5)
+            p6 = top("fpn_p6", c5)
+            return top("fpn_p3", m3), top("fpn_p4", m4), top("fpn_p5", m5), p6, top(
+                "fpn_p7", F.relu(p6))
+        m2 = top("fpn_c2p2", c2, m3)
+        p2 = top("fpn_p2", m2)
+        p3 = top("fpn_p3", m3)
+        p4 = top("fpn_p4", m4)
+        p5 = top("fpn_p5", m5)
         p6 = p5[:, :, ::2, ::2]
         return p2, p3, p4, p5, p6

@@ -35,7 +35,7 @@ from objectdetection_torch.layers.detection import detection_layer
 from objectdetection_torch.layers.proposals import proposal_layer
 from objectdetection_torch import metrics
 from objectdetection_torch import quant as Q
-from objectdetection_torch.models.backbone import Quant, ResNetFPN
+from objectdetection_torch.models.backbone import Quant, ResNetFPN, channels_last
 from objectdetection_torch.models.heads import BoxClassHead, MaskHead
 from objectdetection_torch.models.rpn import RPNHead
 from objectdetection_torch.ops import roi_align
@@ -90,8 +90,7 @@ class MaskRCNN(nn.Module):
         with metrics.span("odtorch.backbone"):
             if cfg.input_scale != 1.0:
                 images = images * cfg.input_scale
-            x = images.permute(0, 3, 1, 2).to(dt).contiguous(memory_format=torch.channels_last)
-            feats = self.fpn(x)
+            feats = self.fpn(channels_last(images.permute(0, 3, 1, 2).to(dt)))
             feats_nhwc = [f.permute(0, 2, 3, 1) for f in feats]
         with metrics.span("odtorch.rpn"):
             if return_qfeats:
