@@ -270,11 +270,9 @@ def _native_unfilter():
 
     from objectdetection_torch.ops import cuda_build
 
-    fn = cuda_build.load("png_unfilter").png_unfilter
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int64
-    return fn
+    return cuda_build.Entry("png_unfilter", "png_unfilter", [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p],
+        result=ctypes.c_int64, stream=False).fn
 
 
 def unfilter_native(rows: np.ndarray, bpp: int) -> np.ndarray:

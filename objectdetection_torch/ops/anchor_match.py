@@ -29,7 +29,8 @@ import torch
 from objectdetection_torch.geometry import iou_matrix
 from objectdetection_torch.ops import cuda_build
 
-launches = 0  # kernel launches (never counts the plain version)
+_MATCH = cuda_build.Entry("anchor_match", "anchor_match",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
 EMPTY_KEY = 0xFFFFFFFF  # the kernel's per-GT key for IoU 0, anchor 0
 _scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -54,10 +55,8 @@ def anchor_match_plain(anchors: torch.Tensor, gt_boxes: torch.Tensor,
 def anchor_match(anchors: torch.Tensor, gt_boxes: torch.Tensor,
                  gt_valid: torch.Tensor) -> AnchorMatch:
     """anchors [A, 4] × gt_boxes [B, G, 4] (+ gt_valid [B, G]) → AnchorMatch."""
-    if anchors.device.type == "cpu":
+    if not cuda_build.takes_kernel(anchors, "anchor_match"):
         return anchor_match_plain(anchors, gt_boxes, gt_valid)
-    if anchors.device.type != "cuda":
-        raise ValueError(f"anchor_match: unsupported device {anchors.device}")
     a, four = anchors.shape
     b, g, four_g = gt_boxes.shape
     if four != 4 or four_g != 4 or gt_valid.shape != (b, g) or g == 0:
@@ -79,19 +78,12 @@ def anchor_match(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     )
     if a == 0 or b == 0:
         return out
-    global launches
-    fn = cuda_build.load("anchor_match").anchor_match
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     key = (dev, stream, b, g)
     if key not in _scratch:  # keys at IoU 0, anchor 0 and the done counter at 0
         _scratch[key] = (torch.full((b, g), EMPTY_KEY, dtype=torch.int64, device=dev),
                          torch.zeros(1, dtype=torch.int32, device=dev))
     keys, done = _scratch[key]
-    with torch.cuda.device(dev):
-        status = fn(anchors.data_ptr(), gt.data_ptr(), valid.data_ptr(), b, a, g,
-                    *[t.data_ptr() for t in out], keys.data_ptr(), done.data_ptr(), stream)
-    cuda_build.check(status, "anchor_match")
-    launches += 1
+    _MATCH.launch(dev, anchors.data_ptr(), gt.data_ptr(), valid.data_ptr(), b, a, g,
+                  *[t.data_ptr() for t in out], keys.data_ptr(), done.data_ptr())
     return out

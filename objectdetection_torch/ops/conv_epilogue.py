@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from objectdetection_torch import metrics
 from objectdetection_torch.ops import cuda_build
 
-launches = 0  # kernel launches (never counts the plain version)
+_EPILOGUE = cuda_build.Entry("conv_epilogue", "conv_epilogue", [ctypes.c_void_p] * 4)
 
 # the epilogue's flags (csrc/conv_epilogue.cu)
 F_BN, F_RES, F_COARSE, F_RELU, F_F32 = 1, 2, 4, 8, 16
@@ -81,19 +81,18 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, bn: BN = None,
     upsampled (not with ``residual``); relu. Returns the result (``y`` itself
     on the card).
     """
+    kernel = cuda_build.takes_kernel(y, "conv_epilogue")
     _check(y, residual, coarse)
-    if y.device.type == "cpu":
-        out = conv_epilogue_plain(y, bias, bn, residual, coarse, relu)
-    else:
+    if kernel:
         out = _launch(y, bias, bn, residual, coarse, relu)
+    else:
+        out = conv_epilogue_plain(y, bias, bn, residual, coarse, relu)
     if metrics.collecting():
         metrics.count("conv_epilogue.launches", 1)
     return out
 
 
 def _check(y, residual, coarse):
-    if y.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"conv_epilogue: unsupported device {y.device}")
     if y.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"conv_epilogue: dtype {y.dtype}, want bfloat16 or float32")
     if y.dim() != 4 or y.shape[1] % 8:
@@ -138,17 +137,9 @@ def _launch(y, bias, bn, residual, coarse, relu):
         r = r.clone(memory_format=torch.channels_last)
     if y.numel() == 0:
         return y
-    fn = cuda_build.load("conv_epilogue").conv_epilogue
-    fn.argtypes = [ctypes.c_void_p] * 5
-    fn.restype = ctypes.c_int
     ptrs = (ctypes.c_void_p * 3)(*[None if v is None else v.data_ptr() for v in vecs])
     dims = (ctypes.c_int * 5)(b, h, w, c, flags)
-    with torch.cuda.device(y.device):
-        status = fn(y.data_ptr(), ptrs, None if r is None else r.data_ptr(), dims,
-                    torch.cuda.current_stream(y.device).cuda_stream)
-    cuda_build.check(status, "conv_epilogue")
-    global launches
-    launches += 1
+    _EPILOGUE.launch(y.device, y.data_ptr(), ptrs, None if r is None else r.data_ptr(), dims)
     return y
 
 

@@ -15,6 +15,15 @@ ROIAlign, anchor-match, fused-block, int8-conv, conv-epilogue and
 ROIAlign-probe kernels must reproduce their plain PyTorch versions bit for
 bit, and a multiply-add contracted into an FMA rounds once where PyTorch
 rounds twice.
+
+The launch seam: a wrapper declares each C entry it calls once, as an
+:class:`Entry` (library, symbol, argument types), and launches it with
+:meth:`Entry.launch` on the tensors' device and that device's current
+stream; the symbol is resolved and typed on first use, the returned status
+checked, and the launch counted in one tally keyed by kernel name
+(:func:`launches`; the plain versions never count). :func:`takes_kernel` is
+the wrappers' device rule: the kernel for a CUDA tensor, the plain version
+for a CPU one, and nothing else.
 """
 
 from __future__ import annotations
@@ -26,7 +35,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -41,6 +52,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_tally: Dict[str, int] = {}
 
 
 def nvcc_path() -> str:
@@ -107,3 +119,60 @@ def check(status: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def takes_kernel(t: torch.Tensor, what: str) -> bool:
+    """The device rule of every kernel wrapper: True for a CUDA tensor (the
+    kernel), False for a CPU one (the plain version); raises for any other
+    device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+def launches(*names: str):
+    """Kernel launches so far: the whole tally as a dict, or the sum over
+    ``names``."""
+    if not names:
+        return dict(_tally)
+    return sum(_tally.get(n, 0) for n in names)
+
+
+class Entry:
+    """One C entry point of ``csrc/<lib>.cu``, declared once by its wrapper.
+
+    ``argtypes`` lists its arguments, without the CUDA stream that a kernel
+    entry takes last (:meth:`launch` appends it; ``stream=False`` for host
+    code, called through :attr:`fn`); ``result`` is its return type;
+    ``name`` is the kernel's name in the launch tally (default: the symbol).
+    Nothing is built or loaded until the first call."""
+
+    def __init__(self, lib: str, symbol: str, argtypes: Sequence, name: Optional[str] = None,
+                 result=ctypes.c_int, stream: bool = True):
+        self.lib, self.symbol, self.name = lib, symbol, name or symbol
+        self.argtypes = list(argtypes) + ([ctypes.c_void_p] if stream else [])
+        self.result = result
+        self._fn = None
+
+    @property
+    def fn(self):
+        """The library's symbol, its argument and result types set once."""
+        if self._fn is None:
+            fn = getattr(load(self.lib), self.symbol)
+            fn.argtypes, fn.restype = self.argtypes, self.result
+            self._fn = fn
+        return self._fn
+
+    def launch(self, device, *args, on_status: Optional[Callable[[int], None]] = None) -> None:
+        """Call the entry on ``device`` and its current stream; a nonzero
+        status raises, naming the symbol (``on_status`` may raise its own
+        message first), and the launch is tallied."""
+        device = torch.device(device)
+        with torch.cuda.device(device):
+            status = self.fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if on_status is not None:
+            on_status(status)
+        check(status, self.symbol)
+        _tally[self.name] = _tally.get(self.name, 0) + 1

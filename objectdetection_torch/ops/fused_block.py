@@ -41,7 +41,12 @@ import torch
 from objectdetection_torch import quant as Q
 from objectdetection_torch.ops import cuda_build
 
-launches = 0  # kernel launches (never counts the plain version)
+_BLOCK = cuda_build.Entry("fused_block", "fused_block_int8", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    name="fused_block")
+_PREP = cuda_build.Entry("fused_block", "fused_block_prep",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3)
 
 TH = 32  # the Pallas kernel's row-tile height (the gate's tiling rule)
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on Hopper
@@ -243,10 +248,8 @@ def fused_identity_block_int8(
     quantized with ``out_scale`` (the carried stream of the backbone)."""
     args = (x8, in_scale, ka8, kb8, kc8, sw_a, sw_b, sw_c, bias_a, bias_b, bias_c,
             bn_a, bn_b, bn_c, scale_b, scale_c, out_scale)
-    if x8.device.type == "cpu":
+    if not cuda_build.takes_kernel(x8, "fused_block"):
         return fused_identity_block_int8_plain(*args)
-    if x8.device.type != "cuda":
-        raise ValueError(f"fused_block: unsupported device {x8.device}")
     b, h, w, c3 = x8.shape
     c1 = ka8.shape[-1]
     if not fused_block_supported(x8, c1):
@@ -261,22 +264,13 @@ def fused_identity_block_int8(
     out = torch.empty_like(x)
     if b == 0:
         return out
-    global launches
     aff, ka, kb, kc = prepare(x.device, plan["kcb"], in_scale, ka8, kb8, kc8, sw_a, sw_b, sw_c,
                               bias_a, bias_b, bias_c, bn_a, bn_b, bn_c, scale_b, scale_c,
                               out_scale)
-    fn = cuda_build.load("fused_block").fused_block_int8
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
-    fn.restype = ctypes.c_int
     plan_arr = (ctypes.c_int * len(PLAN_FIELDS))(*[plan[f] for f in PLAN_FIELDS])
-    with torch.cuda.device(x.device):
-        status = fn(x.data_ptr(), ka.data_ptr(), ka.stride(0), kb.data_ptr(), kc.data_ptr(),
-                    kc.stride(0), aff.data_ptr(), out.data_ptr(), b, h, w, c3, c1, plan_arr,
-                    torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(status, "fused_block")
-    launches += 1
+    _BLOCK.launch(x.device, x.data_ptr(), ka.data_ptr(), ka.stride(0), kb.data_ptr(),
+                  kc.data_ptr(), kc.stride(0), aff.data_ptr(), out.data_ptr(), b, h, w, c3, c1,
+                  plan_arr)
     return out
 
 
@@ -318,16 +312,10 @@ def prepare(dev, kch, in_scale, ka8, kb8, kc8, sw_a, sw_b, sw_c, bias_a, bias_b,
             ptrs += [k.data_ptr(), packed.data_ptr()]
             kstrides += list(k.stride())
             at += k.numel()
-    prep = cuda_build.load("fused_block").fused_block_prep
-    prep.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    prep.restype = ctypes.c_int
     ptr_arr = (ctypes.c_void_p * 22)(*[v.data_ptr() for v in vals], kb8.data_ptr(),
                                       kb.data_ptr(), *ptrs)
     kstr = (ctypes.c_longlong * 8)(*kstrides)
-    with torch.cuda.device(dev):
-        status = prep(ptr_arr, kstr, aff.data_ptr(), c3, c1, kch,
-                      torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(status, "fused_block_prep")
+    _PREP.launch(dev, ptr_arr, kstr, aff.data_ptr(), c3, c1, kch)
     return aff, mats[0], kb, mats[1]
 
 

@@ -45,7 +45,7 @@ from objectdetection_torch import metrics
 from objectdetection_torch import quant as Q
 from objectdetection_torch.ops import cuda_build
 
-launches = 0  # kernel launches (never counts the plain version)
+_CONV = cuda_build.Entry("int8_conv", "int8_conv", [ctypes.c_void_p] * 6)
 
 FILL = 264  # blocks that fill the card twice over (132 SMs, two blocks each)
 # the epilogue's flags (csrc/int8_conv.cu)
@@ -124,13 +124,11 @@ def int8_conv_fused(x8: torch.Tensor, k8: torch.Tensor, post: torch.Tensor,
     out_scale: quantize the result with it (a scalar or [N]), else return
     it in ``dtype`` (bfloat16 or float32). Returns NHWC [B, Ho, Wo, N].
     """
-    if x8.device.type == "cpu":
+    if cuda_build.takes_kernel(x8, "int8_conv"):
+        out = _launch(x8, k8, post, bias, stride, padding, bn, residual, relu, out_scale, dtype)
+    else:
         out = int8_conv_fused_plain(x8, k8, post, bias, stride, padding, bn, residual, relu,
                                     out_scale, dtype)
-    elif x8.device.type != "cuda":
-        raise ValueError(f"int8_conv: unsupported device {x8.device}")
-    else:
-        out = _launch(x8, k8, post, bias, stride, padding, bn, residual, relu, out_scale, dtype)
     metrics.count("int8_conv.launches", 1)
     if out_scale is not None:
         metrics.count("int8_conv.int8_out", 1)
@@ -180,18 +178,11 @@ def _launch(x8, k8, post, bias, stride, padding, bn, residual, relu, out_scale, 
                       device=x.device)
     if out.numel() == 0:
         return out
-    fn = cuda_build.load("int8_conv").int8_conv
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     ptrs = (ctypes.c_void_p * 6)(*[None if v is None else v.data_ptr() for v in vecs])
     dims = (ctypes.c_int * 15)(b, h, w, cin + pad_c, ho, wo, n, kh, kw, stride, t, l, flags,
                                *tile(b * ho * wo, n))
-    with torch.cuda.device(x.device):
-        status = fn(x.data_ptr(), wmat.data_ptr(), ptrs, None if res is None else res.data_ptr(),
-                    out.data_ptr(), dims, torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(status, "int8_conv")
-    global launches
-    launches += 1
+    _CONV.launch(x.device, x.data_ptr(), wmat.data_ptr(), ptrs,
+                 None if res is None else res.data_ptr(), out.data_ptr(), dims)
     return out
 
 

@@ -31,9 +31,9 @@ CHUNK = 64  # rows per 64-bit word of the kernels' pairwise kill bits
 # scratch per image) is the most the kernels take
 MAX_ROWS = 16_384
 
-# `suppress` calls that launched the kernels: one per call, though each call
-# launches two kernels (the plain version never counts)
-launches = 0
+# one entry a `suppress` call, though it launches two kernels; tallied as "nms"
+_SUPPRESS = cuda_build.Entry("nms", "nms_suppress", [ctypes.c_void_p] * 4 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int], name="nms")
 
 
 class NMSResult(NamedTuple):
@@ -117,10 +117,8 @@ def suppress(
     at most :data:`MAX_ROWS` (the kernels' N² / 8 bytes of scratch per image);
     above it this raises ``ValueError``.
     """
-    if sorted_boxes.device.type == "cpu":
+    if not cuda_build.takes_kernel(sorted_boxes, "nms"):
         return suppress_plain(sorted_boxes, class_ids, iou_threshold, budget)
-    if sorted_boxes.device.type != "cuda":
-        raise ValueError(f"nms: unsupported device {sorted_boxes.device}")
     b, n, four = sorted_boxes.shape
     if four != 4 or class_ids.shape != (b, n):
         raise ValueError(f"nms: bad shapes {sorted_boxes.shape}, {class_ids.shape}")
@@ -134,18 +132,8 @@ def suppress(
         return out
     # only the upper triangle of 64-row chunks is written and read
     kill_bits = torch.empty((b, n, -(-n // CHUNK)), dtype=torch.int64, device=boxes.device)
-    global launches
-    lib = cuda_build.load("nms")
-    fn = lib.nms_suppress
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    with torch.cuda.device(boxes.device):
-        status = fn(boxes.data_ptr(), cls.data_ptr(), out.data_ptr(), kill_bits.data_ptr(),
-                    b, n, float(iou_threshold), budget, stream)
-    cuda_build.check(status, "nms_suppress")
-    launches += 1
+    _SUPPRESS.launch(boxes.device, boxes.data_ptr(), cls.data_ptr(), out.data_ptr(),
+                     kill_bits.data_ptr(), b, n, float(iou_threshold), budget)
     return out
 
 

@@ -58,10 +58,6 @@ import torch
 
 from objectdetection_torch.ops import cuda_build
 
-launches = 0  # forward kernel launches (never counts the plain version)
-backward_launches = 0  # gradient kernel launches
-int8_launches = 0  # launches of the int8-epilogue variants
-
 LN2 = float(np.log(np.float32(2.0)).astype(np.float32))
 _MAX_POOL = 32
 _NO_LAYOUT = -1  # csrc/roi_align.cu NO_LAYOUT
@@ -331,14 +327,30 @@ def _check_pyramid(shapes, dtypes, devices, boxes, crop_size):
         raise ValueError("roi_align kernel: the pyramid's rows overflow JAX's int32 table index")
 
 
-def _check_forward(status: int, what: str, channels: int, dtype) -> None:
-    """Raise on a forward launch's status. The kernel gives each of its 256
+def _no_layout(what: str, channels: int, dtype):
+    """A forward launch's own status check. The kernel gives each of its 256
     threads a 16-byte channel vector where the channels fill whole vectors
     of 16-byte-aligned tensors, else one channel: it returns NO_LAYOUT for
     more channels than either layout takes."""
-    if status == _NO_LAYOUT:
-        raise ValueError(f"{what} kernel: {channels} channels of {dtype} fill no thread layout")
-    cuda_build.check(status, what)
+    def check(status: int) -> None:
+        if status == _NO_LAYOUT:
+            raise ValueError(f"{what} kernel: {channels} channels of {dtype} fill no thread "
+                             "layout")
+    return check
+
+
+# the forward kernels (f32, bf16 and the int8 epilogues) and the gradient's
+_LEVELS = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)]
+_SCALES = [ctypes.c_float, ctypes.c_float]
+_FORWARD = {dtype: cuda_build.Entry("roi_align", f"roi_align_{kind}", _LEVELS + [
+    ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + _SCALES, name="roi_align")
+    for dtype, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))}
+_QUANT = cuda_build.Entry("roi_align", "roi_align_quant", _LEVELS + [ctypes.c_void_p] * 3 + [
+    ctypes.c_int] * 7 + _SCALES, name="roi_align_int8")
+_BACKWARD = {dtype: cuda_build.Entry("roi_align", f"roi_align_backward_{kind}", [
+    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)] + [ctypes.c_void_p] * 7 + [
+    ctypes.c_int] * 5 + _SCALES, name="roi_align_backward")
+    for dtype, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))}
 
 
 def _level_dims(shapes):
@@ -359,22 +371,11 @@ def _forward_kernel(features, boxes, image_shape, crop_size) -> torch.Tensor:
     out = torch.empty((b, r, ph, pw, c), dtype=dtype, device=boxes.device)
     if b == 0 or r == 0:
         return out
-    global launches
-    lib = cuda_build.load("roi_align")
-    fn = lib.roi_align_f32 if dtype == torch.float32 else lib.roi_align_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
     scale = _canonical_scale(float(image_shape[0] * image_shape[1]))
-    stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    with torch.cuda.device(boxes.device):
-        status = fn(*[f.data_ptr() for f in feats], _level_dims([f.shape for f in feats]),
-                    boxes.data_ptr(), out.data_ptr(), b, r, c, ph, pw, scale, LN2, stream)
-    _check_forward(status, "roi_align", c, dtype)
-    launches += 1
+    _FORWARD[dtype].launch(boxes.device, *[f.data_ptr() for f in feats],
+                           _level_dims([f.shape for f in feats]), boxes.data_ptr(),
+                           out.data_ptr(), b, r, c, ph, pw, scale, LN2,
+                           on_status=_no_layout("roi_align", c, dtype))
     return out
 
 
@@ -398,24 +399,11 @@ def _quant_kernel(features, boxes, image_shape, crop_size, out_quant, in_scale) 
     out = torch.empty((b, r, ph, pw, c), dtype=out_dtype, device=boxes.device)
     if b == 0 or r == 0:
         return out
-    global int8_launches
-    lib = cuda_build.load("roi_align")
-    fn = lib.roi_align_quant
-    fn.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
     scale = _canonical_scale(float(image_shape[0] * image_shape[1]))
-    stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    with torch.cuda.device(boxes.device):
-        status = fn(*[f.data_ptr() for f in feats], _level_dims([f.shape for f in feats]),
-                    boxes.data_ptr(), m.data_ptr(), out.data_ptr(), _KINDS[dtype],
-                    _KINDS[out_dtype], b, r, c, ph, pw, scale, LN2, stream)
-    _check_forward(status, "roi_align_quant", c, dtype)
-    int8_launches += 1
+    _QUANT.launch(boxes.device, *[f.data_ptr() for f in feats],
+                  _level_dims([f.shape for f in feats]), boxes.data_ptr(), m.data_ptr(),
+                  out.data_ptr(), _KINDS[dtype], _KINDS[out_dtype], b, r, c, ph, pw, scale, LN2,
+                  on_status=_no_layout("roi_align_quant", c, dtype))
     return out
 
 
@@ -428,15 +416,16 @@ def roi_align_backward(
     """Gradient of :func:`batched_multilevel_roi_align` with respect to
     P2..P5, by the CUDA kernels: grad_out [B, R, ph, pw, C] (f32 or bf16) →
     four [B, H_l, W_l, C] tensors in grad_out's dtype. The kernels sum in f32;
-    a bf16 result is rounded once from that sum."""
+    a bf16 result is rounded once from that sum. A CPU grad_out takes
+    :func:`roi_align_backward_plain`."""
+    if not cuda_build.takes_kernel(grad_out, "roi_align_backward"):
+        return roi_align_backward_plain(grad_out, boxes, feature_shapes, image_shape)
     return _backward_kernel(grad_out, boxes, feature_shapes, image_shape)[0]
 
 
 def _backward_kernel(grad_out, boxes, feature_shapes, image_shape):
     """:func:`roi_align_backward`, and for bf16 the kernels' row marks (one
     byte per row of the levels' flat table; None in f32)."""
-    if grad_out.device.type != "cuda":
-        raise ValueError(f"roi_align_backward kernel: unsupported device {grad_out.device}")
     dtype = grad_out.dtype
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"roi_align_backward kernel: unsupported dtype {dtype}")
@@ -456,24 +445,12 @@ def _backward_kernel(grad_out, boxes, feature_shapes, image_shape):
         marks = torch.empty(rows, dtype=torch.uint8, device=dev)
     g_out = grad_out.contiguous()
     boxes = boxes.to(torch.float32).contiguous()
-    global backward_launches
-    lib = cuda_build.load("roi_align")
-    fn = lib.roi_align_backward_f32 if dtype == torch.float32 else lib.roi_align_backward_bf16
-    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)] + [ctypes.c_void_p] * 7 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
     scale = _canonical_scale(float(image_shape[0] * image_shape[1]))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        status = fn(g_out.data_ptr(), _level_dims(shapes), boxes.data_ptr(),
-                    *[g.data_ptr() for g in grads],
-                    None if scratch is None else scratch.data_ptr(),
-                    None if marks is None else marks.data_ptr(),
-                    b, r, c, ph, pw, scale, LN2, stream)
-    cuda_build.check(status, "roi_align_backward")
-    backward_launches += 1
+    _BACKWARD[dtype].launch(dev, g_out.data_ptr(), _level_dims(shapes), boxes.data_ptr(),
+                            *[g.data_ptr() for g in grads],
+                            None if scratch is None else scratch.data_ptr(),
+                            None if marks is None else marks.data_ptr(),
+                            b, r, c, ph, pw, scale, LN2)
     return grads, marks
 
 
@@ -528,11 +505,9 @@ def batched_multilevel_roi_align(
     [C]) with int8 levels → the blend of the codes, dequantized (bf16
     output) or requantized with ``out_quant``. See the module doc."""
     features = list(features)
-    if features[0].device.type == "cpu":
+    if not cuda_build.takes_kernel(features[0], "roi_align"):
         return batched_multilevel_roi_align_plain(features, boxes.detach(), image_shape,
                                                   crop_size, out_quant, in_scale)
-    if features[0].device.type != "cuda":
-        raise ValueError(f"roi_align: unsupported device {features[0].device}")
     if out_quant is not None or in_scale is not None:
         return _quant_kernel(features, boxes.detach(), tuple(image_shape), tuple(crop_size),
                              out_quant, in_scale)
@@ -602,6 +577,8 @@ def backward_tolerance(
     out, start = [], 0
     for sh, s in zip(shapes, s_abs):
         n = sh[0] * sh[1] * sh[2]
-        out.append(gamma[start:start + n].reshape(*sh[:3], 1) * s)
+        # where S = 0 every product is zero on both sides: the bound is 0,
+        # also where γ has no value (inf · 0)
+        out.append((gamma[start:start + n].reshape(*sh[:3], 1) * s).masked_fill(s == 0, 0.0))
         start += n
     return out

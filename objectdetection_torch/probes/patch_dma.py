@@ -31,7 +31,9 @@ import torch
 from objectdetection_torch.ops import cuda_build
 from objectdetection_torch.probes import common
 
-launches = 0  # kernel launches (never counts the plain version)
+_PROBE = cuda_build.Entry("roi_probes", "patch_dma_probe", [ctypes.c_void_p] + [
+    ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_void_p] * 3)
 
 SRC_SHAPE = (32, 256, 256, 256)  # the TPU script's [b, h, w, c] source
 CASES = ((32000, 16), (32000, 8), (3200, 32))  # (ROIs, patch)
@@ -96,18 +98,8 @@ def _launch(src, i, y, xq, patch: int):
     blocks = min(n, BLOCKS_PER_SM * sms)
     partial = torch.empty((blocks, c), dtype=torch.float32, device=dev)
     src = src.contiguous()
-    lib = cuda_build.load("roi_probes")
-    fn = lib.patch_dma_probe
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    global launches
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        status = fn(src.data_ptr(), b, h, w, c, i.data_ptr(), y.data_ptr(), xq.data_ptr(), n,
-                    patch, blocks, partial.data_ptr(), out.data_ptr(), err.data_ptr(), stream)
-    cuda_build.check(status, "patch_dma")
-    launches += 1
+    _PROBE.launch(dev, src.data_ptr(), b, h, w, c, i.data_ptr(), y.data_ptr(), xq.data_ptr(), n,
+                  patch, blocks, partial.data_ptr(), out.data_ptr(), err.data_ptr())
     return out, err
 
 
@@ -120,10 +112,8 @@ def _kernel(src, i, y, xq, patch: int) -> torch.Tensor:
 def patch_dma(src, i, y, xq, patch: int) -> torch.Tensor:
     """P1 on the source's device: the kernel on the card, the plain version
     for a CPU tensor."""
-    if src.device.type == "cpu":
+    if not cuda_build.takes_kernel(src, "patch_dma"):
         return patch_dma_plain(src, i, y, xq, patch)
-    if src.device.type != "cuda":
-        raise ValueError(f"patch_dma: unsupported device {src.device}")
     return _kernel(src, i, y, xq, patch)
 
 

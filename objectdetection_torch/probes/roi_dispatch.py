@@ -41,7 +41,8 @@ from objectdetection_torch.ops import cuda_build
 from objectdetection_torch.probes import common
 from objectdetection_torch.probes.roi_inner import C, CHUNK, POOL, blend_matmul
 
-launches = 0  # kernel launches (never counts the plain version)
+_PROBE = cuda_build.Entry("roi_probes", "roi_dispatch_probe", [ctypes.c_void_p] * 6 + [
+    ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 K = 16
 CLASSES = ((8, 8), (16, 16), (24, 24), (32, 32))  # (py, px); the last is the top class
@@ -204,18 +205,8 @@ def _launch(meta, xint, wx, geom, patch_top, feats, variant: str):
         return out, err
     b, fh, fwc = feats.shape
     args = [t.contiguous() for t in (meta, xint, wx, geom, patch_top, feats)]
-    lib = cuda_build.load("roi_probes")
-    fn = lib.roi_dispatch_probe
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p] + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    global launches
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        status = fn(*[t.data_ptr() for t in args], b, fh, fwc // C, out.data_ptr(), n,
-                    int(variant == "bare"), err.data_ptr(), stream)
-    cuda_build.check(status, "roi_dispatch")
-    launches += 1
+    _PROBE.launch(dev, *[t.data_ptr() for t in args], b, fh, fwc // C, out.data_ptr(), n,
+                  int(variant == "bare"), err.data_ptr())
     return out, err
 
 
@@ -230,10 +221,8 @@ def _kernel(meta, xint, wx, geom, patch_top, feats, variant: str) -> torch.Tenso
 def roi_dispatch(meta, xint, wx, geom, patch_top, feats, variant: str = "dispatch"):
     """P3 on the inputs' device: the kernel on the card, the plain version
     for CPU tensors."""
-    if meta.device.type == "cpu":
+    if not cuda_build.takes_kernel(meta, "roi_dispatch"):
         return roi_dispatch_plain(meta, xint, wx, geom, patch_top, feats, variant)
-    if meta.device.type != "cuda":
-        raise ValueError(f"roi_dispatch: unsupported device {meta.device}")
     return _kernel(meta, xint, wx, geom, patch_top, feats, variant)
 
 

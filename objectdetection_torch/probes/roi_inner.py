@@ -43,7 +43,8 @@ import torch
 from objectdetection_torch.ops import cuda_build, roi_align
 from objectdetection_torch.probes import common
 
-launches = 0  # kernel launches (never counts the plain version)
+_PROBE = cuda_build.Entry("roi_probes", "roi_inner_probe", [ctypes.c_void_p] * 5 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 C = 256
 PY = 32  # resident patch rows
@@ -150,18 +151,8 @@ def _launch(xint, wx, geom, patch, variant: str):
     if n == 0:
         return out, err
     args = [t.contiguous() for t in (xint, wx, geom, patch)]
-    lib = cuda_build.load("roi_probes")
-    fn = lib.roi_inner_probe
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    global launches
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        status = fn(*[t.data_ptr() for t in args], out.data_ptr(), n, VARIANTS.index(variant),
-                    err.data_ptr(), stream)
-    cuda_build.check(status, "roi_inner")
-    launches += 1
+    _PROBE.launch(dev, *[t.data_ptr() for t in args], out.data_ptr(), n,
+                  VARIANTS.index(variant), err.data_ptr())
     return out, err
 
 
@@ -174,10 +165,8 @@ def _kernel(xint, wx, geom, patch, variant: str) -> torch.Tensor:
 def roi_inner(xint, wx, geom, patch, variant: str = "full") -> torch.Tensor:
     """P2 on the inputs' device: the kernel on the card, the plain version
     for CPU tensors."""
-    if xint.device.type == "cpu":
+    if not cuda_build.takes_kernel(xint, "roi_inner"):
         return roi_inner_plain(xint, wx, geom, patch, variant)
-    if xint.device.type != "cuda":
-        raise ValueError(f"roi_inner: unsupported device {xint.device}")
     return _kernel(xint, wx, geom, patch, variant)
 
 

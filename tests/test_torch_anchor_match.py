@@ -3,7 +3,7 @@ its Pallas kernel (interpret mode on the CPU).
 
 The port's function is batched over images (shared anchors [A, 4], GT
 [B, G, 4]); the JAX functions run per image. The CUDA kernel is held against
-the plain version on the card (tests/test_torch_cuda.py, chip_smoke.py).
+the plain version on the card (tests/test_torch_cuda.py).
 
 Tolerances, stated: per-anchor and per-GT maxima within rtol 1e-6 (XLA on
 the CPU may contract an area product and a sum into one FMA, which moves an

@@ -1,5 +1,5 @@
 """The float conv's epilogue (``ops/conv_epilogue.py``, ``csrc/conv_epilogue.cu``)
-and its call sites in ``ResNetFPN``, on the CPU.
+and its call sites in ``ResNetFPN``, on the CPU and on the card.
 
 The plain version equals the unfused chain it replaces, bit for bit; a model
 of the kernel's walk (its 16-byte vectors, the channel group a thread keeps,
@@ -8,11 +8,20 @@ equals the plain version; ResNetFPN in inference, on its CPU path and routed
 through the wrapper as on the card, equals its forward as written before the
 pass, and under gradients its outputs and gradients are unchanged; the
 program's counters read R-101's 112 float convs a call for both pyramids.
-The kernel itself is held against the plain version on the card by
-``chip_smoke.py`` (phase 15).
+
+On the card (marked ``cuda``; they skip without a card or nvcc): the kernel
+bit-equal to the plain version, in place and one launch a call, at every
+distinct site of ``resnet_fpn_sites`` of both R-101 pyramids at B = 2, in
+bf16 and f32 (the inputs of ``tools/torch_kernel_cases.py``, which the
+timing tool ``tools/torch_conv_epilogue_time.py`` shares); a whole seeded
+bf16 R-101 ``ResNetFPN`` at 1024², B = 2, in inference (112 launches)
+bit-equal to the chain before the pass, for both pyramids. Run them with
+``python -m pytest --noconftest -m cuda tests/test_torch_conv_epilogue.py``.
 """
 
 import math
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -21,6 +30,7 @@ import torch.nn.functional as F
 from objectdetection_torch import metrics
 from objectdetection_torch.models import backbone as bb
 from objectdetection_torch.ops import conv_epilogue as ce
+from objectdetection_torch.ops import cuda_build
 
 DTYPES = (torch.bfloat16, torch.float32)
 CASES = [(d, k, c) for d in DTYPES for k in ce.KINDS for c in (64, 256, 2048)]
@@ -418,3 +428,57 @@ def test_sites_count_and_bytes():
     assert 71.5e9 < y < 71.6e9  # bf16 outputs a batch-96 call writes
     moved = sum(ce.site_bytes(s) * s[-1] for s in sites)
     assert 180.0e9 < moved < 180.1e9  # 53.7 ms at 3.35 TB/s
+
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import torch_kernel_cases as cases  # noqa: E402
+SITES = [site for site, _ in cases.epilogue_sites(2).values()]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card")
+    try:
+        cuda_build.nvcc_path()
+    except RuntimeError:
+        pytest.skip("no nvcc")
+    return torch.device("cuda", 0)
+
+
+def same(a, b):
+    """Bit-equal values with NaNs in the same places."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return torch.equal(nan_a, nan_b) and torch.equal(a[~nan_a], b[~nan_b])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("site", range(len(SITES)), ids=[
+    f"{s[0].replace(' ', '_')}-{s[3]}x{s[4]}x{s[2]}" for s in SITES])
+def test_kernel_equals_plain_at_every_site_on_the_card(cuda, site, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(15 + site)
+    y, bias, bn, residual, coarse, relu = cases.epilogue_case(SITES[site], dtype, cuda, gen)
+    want = ce.conv_epilogue_plain(y.clone(), bias, bn, residual, coarse, relu)
+    before = cuda_build.launches("conv_epilogue")
+    got = ce.conv_epilogue(y, bias, bn, residual, coarse, relu)
+    assert cuda_build.launches("conv_epilogue") == before + 1
+    assert got.data_ptr() == y.data_ptr()  # in place
+    assert same(got, want), f"{int((got != want).sum())} of {got.numel()} outputs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [bb.P2_P6, bb.P3_P7], ids=["P2-P6", "P3-P7"])
+def test_r101_inference_equals_the_chain_on_the_card(cuda, levels):
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    x = (20 * torch.randn(2, 3, 1024, 1024, device=cuda, generator=gen)).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    fpn = cases.seeded_fpn(levels, cuda)
+    with torch.enable_grad():  # the chain before the pass: nothing requires a gradient
+        chain = fpn(x)
+    before = cuda_build.launches("conv_epilogue")
+    with torch.inference_mode():
+        fused = fpn(x)
+    assert cuda_build.launches("conv_epilogue") - before == 112
+    for i, (a, b) in enumerate(zip(fused, chain)):
+        assert same(a, b), f"level {i}: {int((a != b).sum())} of {a.numel()} values differ"

@@ -31,15 +31,30 @@ the kernel and the plain version, and anchor matching over the ZF pixel
 anchors. The serving path's device mold is held within 1e-3 of the
 CPU's with TF32 off, and the server's handler on the card answers two
 concurrent clients as it answers them in turn.
+
+At the main path's own sizes, on the seeded inputs the timing tools share
+(``tools/torch_kernel_cases.py``): NMS at the serving, training, sparse and
+RetinaNet cases; ROIAlign, its int8 epilogues and its gradient at the COCO
+pyramid (1024², B = 2, C = 256: 1000 box and 100 mask ROIs, 200 a training
+image), also on boxes outside that map; anchor matching on the COCO anchors
+× 1, 100 and 300 GT (on their own seeded GT); the fused block at the four
+R101 stage shapes of a batch of 2; the three probes at the TPU scripts'
+sizes.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from objectdetection_torch import quant
-from objectdetection_torch.ops import anchor_match, fused_block, nms, roi_align
+from objectdetection_torch.ops import anchor_match, cuda_build, fused_block, nms, roi_align
 from objectdetection_torch.probes import patch_dma, roi_dispatch, roi_inner
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import torch_kernel_cases as cases  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -48,8 +63,6 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card")
-    from objectdetection_torch.ops import cuda_build
-
     try:
         cuda_build.nvcc_path()
     except RuntimeError:
@@ -81,20 +94,34 @@ def nms_case(n, num_classes, seed=0):
     return torch.from_numpy(boxes), torch.from_numpy(cls)
 
 
-@pytest.mark.parametrize("num_classes", [1, 81])
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 257, 1500, 6000])
-def test_nms_kernel_matches_plain(cuda, n, num_classes):
-    boxes, cls = nms_case(n, num_classes)
-    boxes, cls = boxes.to(cuda), cls.to(cuda)
-    for thr in (0.0, 0.3, 0.7, -0.1):  # -0.1: kept all-zero rows kill in their tile
-        # a budget the survivor count reaches in mid-tile (after row n // 2)
-        full = nms.suppress_plain(boxes, cls, thr)
-        mid = int((full[0, :n // 2 + 1] != 0).any(-1).sum())
-        for budget in (max(mid, 1), None, 1):
-            before = nms.launches
-            got = nms.suppress(boxes, cls, thr, budget)
-            assert nms.launches == before + 1
-            assert torch.equal(got, nms.suppress_plain(boxes, cls, thr, budget)), (thr, budget)
+NMS_PARAMS = [pytest.param(n, num_classes, None, id=f"{n}-{num_classes}")
+              for num_classes in (1, 81) for n in (1, 63, 64, 65, 257, 1500, 6000)] + [
+    pytest.param(case[1], None, i, id=case[0]) for i, case in enumerate(cases.NMS_CASES)]
+
+
+@pytest.mark.parametrize("n,num_classes,path_case", NMS_PARAMS)
+def test_nms_kernel_matches_plain(cuda, n, num_classes, path_case):
+    """nms_case's rows at four thresholds and three budgets; the main path's
+    cases (``cases.NMS_CASES``: serving, training, sparse, RetinaNet) at
+    their own threshold and budget."""
+    if path_case is None:
+        boxes, cls = (t.to(cuda) for t in nms_case(n, num_classes))
+        runs = []
+        for thr in (0.0, 0.3, 0.7, -0.1):  # -0.1: kept all-zero rows kill in their tile
+            # a budget the survivor count reaches in mid-tile (after row n // 2)
+            full = nms.suppress_plain(boxes, cls, thr)
+            mid = int((full[0, :n // 2 + 1] != 0).any(-1).sum())
+            runs += [(thr, budget) for budget in (max(mid, 1), None, 1)]
+    else:
+        boxes, cls = cases.nms_case_inputs(cuda)[path_case]
+        runs = [cases.NMS_CASES[path_case][5:7]]
+    for thr, budget in runs:
+        before = cuda_build.launches("nms")
+        got = nms.suppress(boxes, cls, thr, budget)
+        assert cuda_build.launches("nms") == before + 1
+        want = nms.suppress_plain(boxes, cls, thr, budget)
+        assert torch.equal(got, want), (thr, budget)
+        assert path_case is None or bool((want != 0).any())
 
 
 @pytest.mark.parametrize("thr", [0.3, 0.5, 0.7])
@@ -139,9 +166,9 @@ def test_roi_align_kernel_matches_plain(cuda, dtype):
     boxes[:, 20:40, 2] = boxes[:, 20:40, 0]
     boxes = boxes.to(cuda)
     for crop in ((7, 7), (14, 14)):
-        before = roi_align.launches
+        before = cuda_build.launches("roi_align")
         got = roi_align.batched_multilevel_roi_align(feats, boxes, (256, 256), crop)
-        assert roi_align.launches == before + 1
+        assert cuda_build.launches("roi_align") == before + 1
         want = roi_align.batched_multilevel_roi_align_plain(feats, boxes, (256, 256), crop)
         if dtype == torch.float32:
             assert torch.equal(got, want)
@@ -167,13 +194,13 @@ def test_roi_align_kernel_crops_and_channels(cuda, crop, channels):
     image = (256, 256)
     feats = [f.to(cuda) for f in f32]
     bf = [f.to(torch.bfloat16) for f in feats]
-    before = roi_align.launches
+    before = cuda_build.launches("roi_align")
     assert torch.equal(roi_align.batched_multilevel_roi_align(feats, boxes, image, crop),
                        roi_align.batched_multilevel_roi_align_plain(feats, boxes, image, crop))
     got = roi_align.batched_multilevel_roi_align(bf, boxes, image, crop)
     want = roi_align.batched_multilevel_roi_align_plain(bf, boxes, image, crop)
     assert float((got.float() - want.float()).abs().max()) <= roi_align.bf16_tolerance(bf)
-    assert roi_align.launches == before + 2
+    assert cuda_build.launches("roi_align") == before + 2
     s_ch = (torch.rand(channels, generator=gen) * 3 + 1).to(cuda)
     s_sc = torch.tensor(2.5, device=cuda)
     s_out = (torch.rand(*crop, channels, generator=gen) * 3 + 0.5).to(cuda)
@@ -182,9 +209,9 @@ def test_roi_align_kernel_crops_and_channels(cuda, crop, channels):
     for fs, kw in ((feats, dict(out_quant=s_out)), (bf, dict(out_quant=s_out)),
                    (q_ch, dict(out_quant=s_out, in_scale=s_ch)),
                    (q_sc, dict(out_quant=s_out, in_scale=s_sc)), (q_ch, dict(in_scale=s_ch))):
-        before = roi_align.int8_launches
+        before = cuda_build.launches("roi_align_int8")
         got = roi_align.batched_multilevel_roi_align(fs, boxes, image, crop, **kw)
-        assert roi_align.int8_launches == before + 1
+        assert cuda_build.launches("roi_align_int8") == before + 1
         want = roi_align.batched_multilevel_roi_align_plain(fs, boxes, image, crop, **kw)
         assert got.dtype == want.dtype and torch.equal(got, want)
 
@@ -199,9 +226,9 @@ def test_roi_align_kernel_at_a_non_square_crop(cuda, crop):
     boxes = torch.cat([y1x1, (y1x1 + torch.rand(2, 200, 2, generator=gen)).clamp(max=1)], -1)
     boxes = boxes.to(cuda)
     image = (256, 256)
-    before = roi_align.launches
+    before = cuda_build.launches("roi_align")
     got = roi_align.batched_multilevel_roi_align(feats, boxes, image, crop)
-    assert roi_align.launches == before + 1 and tuple(got.shape[2:4]) == crop
+    assert cuda_build.launches("roi_align") == before + 1 and tuple(got.shape[2:4]) == crop
     assert torch.equal(got, roi_align.batched_multilevel_roi_align_plain(feats, boxes, image, crop))
     bf = [f.to(torch.bfloat16) for f in feats]
     err = (roi_align.batched_multilevel_roi_align(bf, boxes, image, crop).float()
@@ -347,9 +374,9 @@ def test_anchor_match_kernel_matches_plain(cuda):
     valid = torch.tensor(rng.rand(3, 70) > 0.2)
     valid[2] = False
     anchors, gt, valid = anchors.to(cuda), gt.to(cuda), valid.to(cuda)
-    before = anchor_match.launches
+    before = cuda_build.launches("anchor_match")
     got = anchor_match.anchor_match(anchors, gt, valid)
-    assert anchor_match.launches == before + 1
+    assert cuda_build.launches("anchor_match") == before + 1
     want = anchor_match.anchor_match_plain(anchors, gt, valid)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -388,9 +415,9 @@ def test_anchor_match_kernel_at_gt_counts(cuda, g, b, anchors_n):
     per-GT scratch as the first left it."""
     for seed in (2, 3):
         anchors, gt, valid = (t.to(cuda) for t in coco_match_case(g, b, anchors_n, seed))
-        before = anchor_match.launches
+        before = cuda_build.launches("anchor_match")
         got = anchor_match.anchor_match(anchors, gt, valid)
-        assert anchor_match.launches == before + 1
+        assert cuda_build.launches("anchor_match") == before + 1
         want = anchor_match.anchor_match_plain(anchors, gt, valid)
         for name, k, w in zip(want._fields, got, want):
             assert torch.equal(k, w), name
@@ -443,9 +470,9 @@ def test_nms_kernel_at_the_faster_rcnn_training_budget(cuda, monkeypatch):
     table = torch.where(torch.isfinite(top)[..., None], table, torch.zeros_like(table))
     assert table.shape == (2, 12000, 4)
     table, cls = table.to(cuda), torch.zeros(2, 12000, dtype=torch.int32, device=cuda)
-    before = nms.launches
+    before = cuda_build.launches("nms")
     got = nms.suppress(table, cls, cfg.nms_threshold, cfg.post_nms_top_n_train)
-    assert nms.launches == before + 1
+    assert cuda_build.launches("nms") == before + 1
     assert torch.equal(got, nms.suppress_plain(table, cls, cfg.nms_threshold,
                                                cfg.post_nms_top_n_train))
     # ~100 survivors an image at IoU 0.2: the budget never stops the sweep,
@@ -477,9 +504,9 @@ def test_anchor_match_kernel_over_the_zf_anchors(cuda):
             gt[:, -1] = 0.0
             valid[:, -1] = False
         a, gt, valid = anchors.to(cuda), gt.to(cuda), valid.to(cuda)
-        before = anchor_match.launches
+        before = cuda_build.launches("anchor_match")
         got = anchor_match.anchor_match(a, gt, valid)
-        assert anchor_match.launches == before + 1
+        assert cuda_build.launches("anchor_match") == before + 1
         want = anchor_match.anchor_match_plain(a, gt, valid)
         for name, k, w in zip(want._fields, got, want):
             assert torch.equal(k, w), (g, name)
@@ -497,9 +524,9 @@ def test_roi_align_backward_kernel_matches_plain(cuda, dtype):
     boxes = boxes.to(cuda)
     for crop in ((7, 7), (14, 14)):
         grad_out = torch.randn(2, 300, *crop, 64, generator=gen).to(cuda, dtype)
-        before = roi_align.backward_launches
+        before = cuda_build.launches("roi_align_backward")
         got = roi_align.roi_align_backward(grad_out, boxes, shapes, (256, 256))
-        assert roi_align.backward_launches == before + 1
+        assert cuda_build.launches("roi_align_backward") == before + 1
         want = roi_align.roi_align_backward_plain(grad_out, boxes, shapes, (256, 256))
         tol = roi_align.backward_tolerance(grad_out, boxes, shapes, (256, 256))
         for g, w, t in zip(got, want, tol):
@@ -517,9 +544,9 @@ def backward_within_bounds(grad_out, boxes, shapes, image):
     """The gradient kernels against the plain backward (and, in bf16, the f32
     backward) within ``backward_tolerance``, NaNs in the same places; in bf16
     the kernels' row marks equal ``touched_row_marks``."""
-    before = roi_align.backward_launches
+    before = cuda_build.launches("roi_align_backward")
     got, marks = roi_align._backward_kernel(grad_out, boxes, shapes, image)
-    assert roi_align.backward_launches == before + 1
+    assert cuda_build.launches("roi_align_backward") == before + 1
     want = roi_align.roi_align_backward_plain(grad_out, boxes, shapes, image)
     refs = [(want, roi_align.backward_tolerance(grad_out, boxes, shapes, image))]
     if grad_out.dtype == torch.bfloat16:
@@ -619,9 +646,9 @@ def test_roi_align_output_carries_the_feature_gradient(cuda):
     boxes = torch.tensor([[[0.1, 0.1, 0.6, 0.7], [0.0, 0.0, 1.0, 1.0]]], device=cuda)
     out = roi_align.batched_multilevel_roi_align(feats, boxes, (128, 128), (7, 7))
     assert out.requires_grad and out.grad_fn is not None
-    before = roi_align.backward_launches
+    before = cuda_build.launches("roi_align_backward")
     grads = torch.autograd.grad(out.square().sum(), feats, allow_unused=True)
-    assert roi_align.backward_launches == before + 1
+    assert cuda_build.launches("roi_align_backward") == before + 1
     assert any(g is not None and bool(g.abs().sum() > 0) for g in grads)
     with torch.no_grad():
         assert not roi_align.batched_multilevel_roi_align(feats, boxes, (128, 128),
@@ -650,9 +677,9 @@ def test_roi_align_int8_epilogues_match_plain(cuda, in_kind):
         s_out = (torch.rand(*crop, c, generator=gen) * 3 + 0.5).to(cuda)
         variants = [dict(kw, out_quant=s_out)] + ([dict(kw)] if kw else [])
         for v in variants:
-            before = roi_align.int8_launches
+            before = cuda_build.launches("roi_align_int8")
             got = roi_align.batched_multilevel_roi_align(feats, boxes, (256, 256), crop, **v)
-            assert roi_align.int8_launches == before + 1
+            assert cuda_build.launches("roi_align_int8") == before + 1
             want = roi_align.batched_multilevel_roi_align_plain(feats, boxes, (256, 256),
                                                                 crop, **v)
             assert got.dtype == want.dtype and torch.equal(got, want)
@@ -680,9 +707,9 @@ def block_args(cuda, b, h, w, c3, c1, seed=6, alpha=1.0, shift=0.0, oihw=False):
 
 @pytest.mark.parametrize("b,h,w,c3,c1", [
     (2, 64, 64, 256, 64), (2, 16, 16, 1024, 256), (2, 16, 8, 2048, 512),
-    # the four R101 stage shapes of a 1024² image
+    # the four R101 stage shapes of a 1024² image, and of a batch of 2
     (1, 256, 256, 256, 64), (1, 128, 128, 512, 128), (1, 64, 64, 1024, 256),
-    (1, 32, 32, 2048, 512),
+    (1, 32, 32, 2048, 512), *[(2, *stage) for stage in cases.STAGES],
     # ragged: W = 3, W = 12, H = 16 over two row tiles with a ragged last
     # column tile; a batch of 3
     (1, 16, 3, 128, 64), (1, 16, 12, 32, 64), (1, 16, 2044, 64, 64), (3, 16, 16, 256, 64),
@@ -691,9 +718,9 @@ def block_args(cuda, b, h, w, c3, c1, seed=6, alpha=1.0, shift=0.0, oihw=False):
 ])
 def test_fused_block_kernel_matches_plain(cuda, b, h, w, c3, c1):
     args = block_args(cuda, b, h, w, c3, c1)
-    before = fused_block.launches
+    before = cuda_build.launches("fused_block")
     got = fused_block.fused_identity_block_int8(*args)
-    assert fused_block.launches == before + 1
+    assert cuda_build.launches("fused_block") == before + 1
     want = fused_block.fused_identity_block_int8_plain(*args)
     assert torch.equal(got, want)
     assert int((want != 0).sum()) > want.numel() // 4  # the block is not all clipped
@@ -731,10 +758,10 @@ def test_fused_block_launches_two_kernels_per_call(cuda):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        before = fused_block.launches
+        before = cuda_build.launches("fused_block")
         got = fused_block.fused_identity_block_int8(*args)
         torch.cuda.synchronize()
-    assert fused_block.launches == before + 1
+    assert cuda_build.launches("fused_block") == before + 1
     names = [e.key for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     assert len(names) == 2, names
@@ -759,55 +786,29 @@ def same(a, b):
     return torch.equal(nan_a, nan_b) and torch.equal(a[~nan_a], b[~nan_b])
 
 
-def test_roi_align_kernels_outside_the_map_match_plain(cuda):
-    gen = torch.Generator().manual_seed(8)
-    c = 64
-    nan = float("nan")
-    # a NaN box; image 0 left of and above P2 (the table index wraps to the
-    # end of the table); image 1 above its map (reads image 0's rows)
-    boxes = torch.tensor([[[nan] * 4, [-0.2, -0.2, 0.1, 0.1], [0.1, 0.1, 0.5, 0.6]],
-                          [[-0.6, 0.2, -0.3, 0.5], [-0.5, -0.7, -0.1, -0.2],
-                           [0.0, 0.0, 1.0, 1.0]]], device=cuda)
-    f32 = [torch.randn(2, s, s, c, generator=gen).to(cuda) for s in (64, 32, 16, 8)]
-    shapes = [tuple(f.shape) for f in f32]
-    for crop in ((7, 7), (14, 14)):
-        got = roi_align.batched_multilevel_roi_align(f32, boxes, (256, 256), crop)
-        want = roi_align.batched_multilevel_roi_align_plain(f32, boxes, (256, 256), crop)
-        assert same(got, want) and bool(torch.isnan(want[0, 0]).all())
-        assert bool(torch.isfinite(want[:, 1:]).all())
-        s_out = (torch.rand(*crop, c, generator=gen) * 3 + 0.5).to(cuda)
-        bf = [f.to(torch.bfloat16) for f in f32]
-        got = roi_align.batched_multilevel_roi_align(bf, boxes, (256, 256), crop, out_quant=s_out)
-        want = roi_align.batched_multilevel_roi_align_plain(bf, boxes, (256, 256), crop,
-                                                            out_quant=s_out)
-        assert torch.equal(got, want) and not bool(got[0, 0].any())
-        grad_out = torch.randn(2, 3, *crop, c, generator=gen).to(cuda)
-        got = roi_align.roi_align_backward(grad_out, boxes, shapes, (256, 256))
-        want = roi_align.roi_align_backward_plain(grad_out, boxes, shapes, (256, 256))
-        tol = roi_align.backward_tolerance(grad_out, boxes, shapes, (256, 256))
-        for g, w, t in zip(got, want, tol):
-            fin = ~torch.isnan(w)
-            assert torch.equal(torch.isnan(g), ~fin)
-            assert bool(((g.double() - w.double()).abs() <= t)[fin].all())
-
-
-def test_patch_dma_kernel_matches_plain(cuda):
-    src = patch_dma.make_source((4, 64, 64, 256), cuda)
-    for n, p in ((500, 16), (300, 8), (40, 32)):
-        i, y, xq = patch_dma.make_indices(n, p, (4, 64, 64, 256), cuda)
-        before = patch_dma.launches
+@pytest.mark.parametrize("shape,patches", [
+    ((4, 64, 64, 256), ((500, 16), (300, 8), (40, 32))),
+    (patch_dma.SRC_SHAPE, patch_dma.CASES)], ids=["small", "tpu"])
+def test_patch_dma_kernel_matches_plain(cuda, shape, patches):
+    """At a small source, and at the TPU script's source and cases."""
+    src = patch_dma.make_source(shape, cuda)
+    for n, p in patches:
+        i, y, xq = patch_dma.make_indices(n, p, shape, cuda)
+        before = cuda_build.launches("patch_dma_probe")
         got = patch_dma.patch_dma(src, i, y, xq, p)
-        assert patch_dma.launches == before + 1
+        assert cuda_build.launches("patch_dma_probe") == before + 1
         want = patch_dma.patch_dma_plain(src, i, y, xq, p)
         assert bool(((got - want).abs() <= patch_dma.tolerance(src, i, y, xq)).all())
 
 
 @pytest.mark.parametrize("variant", roi_inner.VARIANTS)
-def test_roi_inner_kernel_matches_plain(cuda, variant):
-    args = roi_inner.make_inputs(320, cuda)
-    before = roi_inner.launches
+@pytest.mark.parametrize("n", [320, 96000], ids=["small", "tpu"])
+def test_roi_inner_kernel_matches_plain(cuda, n, variant):
+    """At 320 ROIs, and at the TPU script's 96000."""
+    args = roi_inner.make_inputs(n, cuda)
+    before = cuda_build.launches("roi_inner_probe")
     got = roi_inner.roi_inner(*args, variant)
-    assert roi_inner.launches == before + 1
+    assert cuda_build.launches("roi_inner_probe") == before + 1
     assert torch.equal(got, roi_inner.roi_inner_plain(*args, variant))
 
 
@@ -828,18 +829,21 @@ def test_roi_inner_kernel_at_ragged_counts(cuda, variant, n):
         with pytest.raises(ValueError, match="even"):
             roi_inner.roi_inner(*args, variant)
         return
-    before = roi_inner.launches
+    before = cuda_build.launches("roi_inner_probe")
     got = roi_inner.roi_inner(*args, variant)
-    assert roi_inner.launches == before + 1
+    assert cuda_build.launches("roi_inner_probe") == before + 1
     assert torch.equal(got, roi_inner.roi_inner_plain(*args, variant))
 
 
 @pytest.mark.parametrize("variant", roi_dispatch.VARIANTS)
-def test_roi_dispatch_kernel_matches_plain(cuda, variant):
-    args = roi_dispatch.make_inputs(variant, 320, cuda)
-    before = roi_dispatch.launches
+@pytest.mark.parametrize("n", [320, 96000], ids=["small", "tpu"])
+def test_roi_dispatch_kernel_matches_plain(cuda, n, variant):
+    """At 320 ROIs, and at the TPU script's 96000; a ROI outside the combos
+    or its source raises."""
+    args = roi_dispatch.make_inputs(variant, n, cuda)
+    before = cuda_build.launches("roi_dispatch_probe")
     got = roi_dispatch.roi_dispatch(*args, variant)
-    assert roi_dispatch.launches == before + 1
+    assert cuda_build.launches("roi_dispatch_probe") == before + 1
     assert torch.equal(got, roi_dispatch.roi_dispatch_plain(*args, variant))
     meta = args[0].clone()
     meta[3, 0, 1], meta[3, 0, 2] = 3, 1  # outside the combos
@@ -896,7 +900,120 @@ def test_roi_dispatch_kernel_at_ragged_counts_and_edges(cuda, case):
         args, variant = roi_dispatch.make_mixed_inputs(int(arg), cuda), "dispatch"
     else:
         args, variant = dispatch_edge_case(int(arg), cuda), "dispatch"
-    before = roi_dispatch.launches
+    before = cuda_build.launches("roi_dispatch_probe")
     got = roi_dispatch.roi_dispatch(*args, variant)
-    assert roi_dispatch.launches == before + 1
+    assert cuda_build.launches("roi_dispatch_probe") == before + 1
     assert torch.equal(got, roi_dispatch.roi_dispatch_plain(*args, variant))
+
+
+def coco_pyramid(gen, device, dtype=torch.float32):
+    """The COCO config's P2-P5 at 1024², B = 2, C = 256."""
+    from objectdetection_torch.config import COCO_CONFIG as cfg
+
+    return [torch.randn(cases.BATCH, h, w, cfg.fpn_channels, generator=gen).to(device, dtype)
+            for h, w in cfg.feature_shapes()[:4]]
+
+
+@pytest.mark.parametrize("stage", ["box", "mask"])
+def test_roi_align_kernels_at_the_coco_pyramid(cuda, stage):
+    """The serving stage's ROIs (box: 1000 an image at 7x7, mask: 100 at
+    14x14): the forward bit-equal in f32 and within its tolerance in bf16,
+    the four int8 epilogues bit-equal; the training stage's (200 an image):
+    the gradient within its bounds in f32 and bf16."""
+    from objectdetection_torch.config import COCO_CONFIG as cfg
+
+    gen = torch.Generator().manual_seed(2)
+    image = tuple(cfg.image_shape[:2])
+    r, crop = (1000, cfg.pool_shape) if stage == "box" else (100, cfg.mask_pool_shape)
+    f32 = coco_pyramid(gen, cuda)
+    f16 = [f.to(torch.bfloat16) for f in f32]
+    boxes = cases.roi_boxes(gen, r, cuda)
+    assert torch.equal(roi_align.batched_multilevel_roi_align(f32, boxes, image, crop),
+                       roi_align.batched_multilevel_roi_align_plain(f32, boxes, image, crop))
+    err = (roi_align.batched_multilevel_roi_align(f16, boxes, image, crop).float()
+           - roi_align.batched_multilevel_roi_align_plain(f16, boxes, image, crop).float())
+    assert float(err.abs().max()) <= roi_align.bf16_tolerance(f16)
+    c = cfg.fpn_channels
+    s_ch = (torch.rand(c, generator=gen) * 2 + 3.0).to(cuda)
+    s_sc = torch.tensor(4.5, device=cuda)
+    s_out = (torch.rand(*crop, c, generator=gen) * 2 + 3.0).to(cuda)
+    q_ch = [quant.quantize_act(f, s_ch) for f in f32]
+    q_sc = [quant.quantize_act(f, s_sc) for f in f32]
+    for feats, kw in ((f16, dict(out_quant=s_out)), (q_ch, dict(out_quant=s_out, in_scale=s_ch)),
+                      (q_sc, dict(out_quant=s_out, in_scale=s_sc)), (q_ch, dict(in_scale=s_ch))):
+        got = roi_align.batched_multilevel_roi_align(feats, boxes, image, crop, **kw)
+        want = roi_align.batched_multilevel_roi_align_plain(feats, boxes, image, crop, **kw)
+        assert got.dtype == want.dtype and torch.equal(got, want), sorted(kw)
+    train = cases.roi_boxes(gen, cfg.train_rois_per_image, cuda)
+    shapes = [tuple(f.shape) for f in f32]
+    g32 = torch.randn(cases.BATCH, cfg.train_rois_per_image, *crop, c, generator=gen).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        backward_within_bounds(g32.to(dtype), train, shapes, image)
+
+
+def out_of_map_case(pyramid, device):
+    """(boxes, the f32 pyramid, the image shape) of boxes outside the map.
+    small: a NaN box; image 0 left of and above P2 (the table index wraps
+    to the end of the table); image 1 above its map (reads image 0's rows).
+    coco, at the COCO pyramid: a NaN box, a box left of and above image 0's
+    P2 whose table index wraps to the end of the table, a box above image
+    1's P4 that reads image 0's rows."""
+    from objectdetection_torch.config import COCO_CONFIG as cfg
+
+    nan = float("nan")
+    if pyramid == "small":
+        gen = torch.Generator().manual_seed(8)
+        boxes = torch.tensor([[[nan] * 4, [-0.2, -0.2, 0.1, 0.1], [0.1, 0.1, 0.5, 0.6]],
+                              [[-0.6, 0.2, -0.3, 0.5], [-0.5, -0.7, -0.1, -0.2],
+                               [0.0, 0.0, 1.0, 1.0]]], device=device)
+        f32 = [torch.randn(2, s, s, 64, generator=gen).to(device) for s in (64, 32, 16, 8)]
+        return boxes, f32, (256, 256), gen
+    boxes = torch.tensor([
+        [[nan, nan, nan, nan], [-0.05, -0.05, 0.02, 0.02]],  # NaN; P2, wraps to the end
+        [[-0.3, 0.2, -0.1, 0.4], [0.2, 0.3, 0.6, 0.7]],  # above image 1's P4; inside
+    ], device=device)
+    image = tuple(cfg.image_shape[:2])
+    f32 = coco_pyramid(torch.Generator().manual_seed(2), device)
+    levels = roi_align.roi_levels(boxes, image[0] * image[1]).tolist()
+    rows = roi_align._corners([f.shape[1:3] for f in f32], boxes, image, cfg.pool_shape)
+    table = sum(f.shape[0] * f.shape[1] * f.shape[2] for f in f32)
+    r01 = torch.stack([r for r, _ in rows]).reshape(4, 2, 2, -1)[:, 0, 1]
+    assert levels[0][1] == 2 and bool((r01 >= table - cases.BATCH * 32 * 32).any())  # it wraps
+    return boxes, f32, image, torch.Generator().manual_seed(12)
+
+
+@pytest.mark.parametrize("pyramid", ["small", "coco"])
+def test_roi_align_kernels_outside_the_map_match_plain(cuda, pyramid):
+    """At a small pyramid and at the COCO one (out_of_map_case), at both
+    crops: f32 bit-equal, bf16 within its tolerance, the int8 epilogue
+    bit-equal, the gradient within its bounds in f32 and bf16, each with
+    NaNs in the plain version's places."""
+    boxes, f32, image, gen = out_of_map_case(pyramid, cuda)
+    c = f32[0].shape[-1]
+    shapes = [tuple(f.shape) for f in f32]
+    bf = [f.to(torch.bfloat16) for f in f32]
+    for crop in ((7, 7), (14, 14)):
+        got = roi_align.batched_multilevel_roi_align(f32, boxes, image, crop)
+        want = roi_align.batched_multilevel_roi_align_plain(f32, boxes, image, crop)
+        assert same(got, want) and bool(torch.isnan(want[0, 0]).all())
+        assert bool(torch.isfinite(want[:, 1:]).all() and torch.isfinite(want[1]).all())
+        got = roi_align.batched_multilevel_roi_align(bf, boxes, image, crop)
+        want = roi_align.batched_multilevel_roi_align_plain(bf, boxes, image, crop)
+        fin = ~torch.isnan(want)
+        assert torch.equal(torch.isnan(got), ~fin)
+        assert float((got[fin].float() - want[fin].float()).abs().max()) <= \
+            roi_align.bf16_tolerance(bf)
+        s_out = (torch.rand(*crop, c, generator=gen) * 3 + 0.5).to(cuda)
+        got = roi_align.batched_multilevel_roi_align(bf, boxes, image, crop, out_quant=s_out)
+        want = roi_align.batched_multilevel_roi_align_plain(bf, boxes, image, crop,
+                                                            out_quant=s_out)
+        assert got.dtype == torch.int8 and torch.equal(got, want) and not bool(got[0, 0].any())
+        g32 = torch.randn(*boxes.shape[:2], *crop, c, generator=gen).to(cuda)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = roi_align.roi_align_backward(g32.to(dtype), boxes, shapes, image)
+            want = roi_align.roi_align_backward_plain(g32.to(dtype), boxes, shapes, image)
+            tol = roi_align.backward_tolerance(g32.to(dtype), boxes, shapes, image)
+            for g, w, t in zip(got, want, tol):
+                fin = ~torch.isnan(w)
+                assert torch.equal(torch.isnan(g), ~fin)
+                assert bool(((g.double() - w.double()).abs() <= t)[fin].all())

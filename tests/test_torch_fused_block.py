@@ -155,8 +155,8 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
 
 # ---------------------------------------------------------------- the CUDA kernel's tile walk
 
-# the ResNet stages of a 1024² batch of 2 (chip_smoke.py STAGES): the tile and
-# the number of blocks that PERF.md states for each
+# the ResNet stages of a 1024² batch of 2 (tools/torch_kernel_cases.py STAGES):
+# the tile and the number of blocks that PERF.md states for each
 STAGE_PLANS = {
     (2, 256, 256, 256, 64): ((8, 16), 1024),
     (2, 128, 128, 512, 128): ((8, 16), 256),

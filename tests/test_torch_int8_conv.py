@@ -16,31 +16,29 @@ residual or kernel) raises. A whole int8 call at 256² makes 125 launches and
 no plain conv call, and equals the plain path.
 """
 
-import importlib.util
+import sys
 from pathlib import Path
 
 import pytest
 import torch
 
 from objectdetection_torch import quant as Q
+from objectdetection_torch.ops import cuda_build
 from objectdetection_torch.ops import int8_conv as ic
 
 pytestmark = pytest.mark.cuda
 
-# the tool's seeded operands: x8, k8, post, bias and the epilogue's arguments
-_TOOL = Path(__file__).resolve().parents[1] / "tools" / "torch_int8_conv_time.py"
-_spec = importlib.util.spec_from_file_location("torch_int8_conv_time", _TOOL)
-_tool = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(_tool)
-make_case = _tool.case
+# the seeded operands the timing tool shares: x8, k8, post, bias and the
+# epilogue's arguments
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import torch_kernel_cases as cases  # noqa: E402
+make_case = cases.int8_conv_case
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card")
-    from objectdetection_torch.ops import cuda_build
-
     try:
         cuda_build.nvcc_path()
     except RuntimeError:
@@ -50,9 +48,9 @@ def cuda():
 
 def check(dev, *shape, **over):
     x8, k8, post, bias, kw = make_case(dev, *shape, **over)
-    before = ic.launches
+    before = cuda_build.launches("int8_conv")
     got = ic.int8_conv_fused(x8, k8, post, bias, **kw)
-    assert ic.launches == before + 1
+    assert cuda_build.launches("int8_conv") == before + 1
     want = ic.int8_conv_fused_plain(x8, k8, post, bias, **kw)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -115,14 +113,14 @@ def test_int8_call_goes_through_the_kernel(cuda, monkeypatch):
     windows = torch.tensor([[0.0, 0.0, 256.0, 256.0]] * 2, device=cuda)
     frozen = detector.freeze_weights(detector.calibrate_variables(params, images, cfg))
     with torch.inference_mode():
-        before = ic.launches
+        before = cuda_build.launches("int8_conv")
         plain_convs = []
         real = Q.int8_conv
         monkeypatch.setattr(Q, "int8_conv", lambda *a, **k: plain_convs.append(1) or real(*a, **k))
         got = detector.forward_inference(frozen, images, windows, cfg)
         torch.cuda.synchronize()
         convs = ic.mask_rcnn_convs(2, 256, 22, cfg.detection_post_nms_instances)
-        assert ic.launches - before == sum(c[-1] for c in convs) == 125
+        assert cuda_build.launches("int8_conv") - before == sum(c[-1] for c in convs) == 125
         assert not plain_convs  # no im2col, no torch._int_mm from a conv
         monkeypatch.setattr(ic, "int8_conv_fused", ic.int8_conv_fused_plain)
         want = detector.forward_inference(frozen, images, windows, cfg)

@@ -29,7 +29,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from objectdetection_torch.ops import roi_align
+from objectdetection_torch.ops import cuda_build, roi_align
 from objectdetection_torch.probes import common, patch_dma, roi_dispatch, roi_inner
 
 torch.set_num_threads(1)
@@ -226,11 +226,11 @@ def test_probe_entry_points_need_the_card(call):
 
 
 def test_probe_entry_points_run_the_plain_versions_on_the_cpu(capsys):
-    before = (patch_dma.launches, roi_inner.launches, roi_dispatch.launches)
+    before = (cuda_build.launches("patch_dma_probe"), cuda_build.launches("roi_inner_probe"), cuda_build.launches("roi_dispatch_probe"))
     patch_dma.main(["--device", "cpu", "--n", "8", "--images", "1", "--iters", "1"])
     roi_inner.main(["--device", "cpu", "--n", "16", "--iters", "1", "--variant", "wide2c"])
     roi_dispatch.main(["--device", "cpu", "--n", "16", "--iters", "1", "--variant", "bare"])
-    assert (patch_dma.launches, roi_inner.launches, roi_dispatch.launches) == before
+    assert (cuda_build.launches("patch_dma_probe"), cuda_build.launches("roi_inner_probe"), cuda_build.launches("roi_dispatch_probe")) == before
     out = capsys.readouterr().out
     assert "M dma/s" in out and "GB/s" in out
     assert "wide2c" in out and "ms for 16 ROIs" in out and "us/ROI" in out

@@ -581,11 +581,12 @@ def test_int8_block_chain_equals_unfused_blocks(dtype, per_channel):
 
 def test_int8_conv_counters_over_one_call():
     from objectdetection_torch import detector, metrics
+    from objectdetection_torch.ops import cuda_build
     from objectdetection_torch.ops import int8_conv as ic
 
     cfg, frozen, images = _small_int8_state("bfloat16", True)
     windows = torch.tensor([[0.0, 0.0, 64.0, 64.0]] * 2)
-    before = ic.launches
+    before = cuda_build.launches("int8_conv")
     with torch.inference_mode(), metrics.collect("cpu") as rec:
         detector.forward_inference(frozen, images, windows, cfg)
     rec.resolve()
@@ -593,4 +594,4 @@ def test_int8_conv_counters_over_one_call():
     int8_out = sum(c[-1] for c in convs if c[-2] in ("ab", "c_proj", "c_id"))
     assert (rec.counters["int8_conv.launches"], rec.counters["int8_conv.int8_out"]) == (
         sum(c[-1] for c in convs), int8_out) == (74, 48)
-    assert ic.launches == before  # the CPU ran the plain version
+    assert cuda_build.launches("int8_conv") == before  # the CPU ran the plain version

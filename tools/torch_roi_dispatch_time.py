@@ -3,9 +3,11 @@
 Times ``probes.roi_dispatch.roi_dispatch`` on each of its three variants at
 the TPU script's size (``make_inputs``: 96000 ROIs from ``RandomState(0)``)
 with torch.profiler, and prints one line of JSON: device ms per call of each
-variant, their sum, a digest of each output, the kernel records the profiler
-saw for each variant (20 for none lost), and the card's name and power
-limit. Run it on two checkouts in turns, in one command, to compare two
+variant, whether it equals the plain version, the plain version's ms (CUDA
+events) and the bound (``work``: bytes at 3.35 TB/s, or the f32 and bf16
+operations at their peaks), the sums of the three, a digest of each output,
+the kernel records the profiler saw for each variant (20 for none lost), and
+the card's name and power limit. Run it on two checkouts in turns, in one command, to compare two
 versions of the kernel on one card (ROOT, default this repository, names the
 checkout whose package is imported; both draw the same inputs):
 
@@ -15,7 +17,6 @@ Needs a CUDA card.
 """
 
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -24,8 +25,9 @@ ROOT = sys.argv[1] if len(sys.argv) > 1 else str(HERE)
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
+import torch_kernel_cases as kc  # noqa: E402
 
-from objectdetection_torch.probes import roi_dispatch  # noqa: E402
+from objectdetection_torch.probes import common, roi_dispatch  # noqa: E402
 
 REPS = 20
 
@@ -58,23 +60,33 @@ def device_ms(fn, reps: int):
     return total, seen
 
 
+def bound_ms(moved: int, f32_ops: int, mm_ops: int) -> float:
+    """The bound of ``work``'s counts: bytes at 3.35 TB/s, or the f32 and the
+    bf16 tensor-core operations at their peaks."""
+    return max(moved / kc.PEAK_BYTES, f32_ops / kc.PEAK_F32 + mm_ops / kc.PEAK_BF16) * 1e3
+
+
 def main():
     dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    res, total = {}, 0.0
+    res, total = {}, {"sum": 0.0, "plain sum": 0.0, "bound sum": 0.0}
     for v in roi_dispatch.VARIANTS:
         args = roi_dispatch.make_inputs(v, device=dev)
         out = roi_dispatch.roi_dispatch(*args, v)  # checks the error flag once
         res[f"{v} digest"] = digest(out)
+        res[f"{v} equal to plain"] = bool(torch.equal(out,
+                                                      roi_dispatch.roi_dispatch_plain(*args, v)))
         del out
         ms, seen = device_ms(lambda: roi_dispatch._launch(*args, v), REPS)
         res[v] = ms
         res[f"{v} records"] = seen
-        total += ms
+        res[f"{v} plain ms"] = common.timed(lambda: roi_dispatch.roi_dispatch_plain(*args, v),
+                                            1, dev)[0]
+        res[f"{v} bound ms"] = bound_ms(*roi_dispatch.work(args[0].shape[0], v,
+                                                           args[-1].numel()))
+        for key, suffix in (("sum", ""), ("plain sum", " plain ms"), ("bound sum", " bound ms")):
+            total[key] += res[f"{v}{suffix}"]
         del args
-    print(json.dumps({"root": ROOT, "card": card, "sum": total, **res}))
+    print(json.dumps({"root": ROOT, "card": common.card(), **total, **res}))
 
 
 if __name__ == "__main__":

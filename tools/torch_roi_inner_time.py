@@ -3,11 +3,14 @@
 Times ``probes.roi_inner.roi_inner`` on each of its six variants at the TPU
 script's size (``make_inputs``: 96000 ROIs from ``RandomState(0)``) with
 torch.profiler, and prints one line of JSON: device ms per call of each
-variant, their sum, a digest of each output, and the card's name and power
-limit (and, for a variant whose kernel records the profiler lost, how many
-it saw). Run it on two checkouts in turns, in one command, to compare two
-versions of the kernel on one card (ROOT, default this repository, names the
-checkout whose package is imported; both draw the same inputs):
+variant, whether it equals the plain version, the plain version's ms (CUDA
+events) and the bound (``work``: bytes at 3.35 TB/s, or the f32 and bf16
+operations at their peaks), the sums of the three, a digest of each output,
+and the card's name and power limit (and, for a variant whose kernel records
+the profiler lost, how many it saw). Run it on two checkouts in turns, in one
+command, to compare two versions of the kernel on one card (ROOT, default
+this repository, names the checkout whose package is imported; both draw the
+same inputs):
 
     for r in OLD . . OLD; do python3 tools/torch_roi_inner_time.py $r; done
 
@@ -15,7 +18,6 @@ Needs a CUDA card.
 """
 
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -24,8 +26,9 @@ ROOT = sys.argv[1] if len(sys.argv) > 1 else str(HERE)
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
+import torch_kernel_cases as kc  # noqa: E402
 
-from objectdetection_torch.probes import roi_inner  # noqa: E402
+from objectdetection_torch.probes import common, roi_inner  # noqa: E402
 
 REPS = 20
 
@@ -58,23 +61,31 @@ def device_ms(fn, reps: int):
     return total, seen
 
 
+def bound_ms(moved: int, f32_ops: int, mm_ops: int) -> float:
+    """The bound of ``work``'s counts: bytes at 3.35 TB/s, or the f32 and the
+    bf16 tensor-core operations at their peaks."""
+    return max(moved / kc.PEAK_BYTES, f32_ops / kc.PEAK_F32 + mm_ops / kc.PEAK_BF16) * 1e3
+
+
 def main():
     dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     args = roi_inner.make_inputs(device=dev)
-    res, total = {}, 0.0
+    res, total = {}, {"sum": 0.0, "plain sum": 0.0, "bound sum": 0.0}
     for v in roi_inner.VARIANTS:
         out = roi_inner.roi_inner(*args, v)  # checks the error flag once
         res[f"{v} digest"] = digest(out)
+        res[f"{v} equal to plain"] = bool(torch.equal(out, roi_inner.roi_inner_plain(*args, v)))
         del out
         ms, launches = device_ms(lambda: roi_inner._launch(*args, v), REPS)
         res[v] = ms
-        total += ms
         if launches != REPS:  # the profiler lost kernel records: the mean is not one
             res[f"{v} kernels seen"] = launches
-    print(json.dumps({"root": ROOT, "card": card, "sum": total, **res}))
+        res[f"{v} plain ms"] = common.timed(lambda: roi_inner.roi_inner_plain(*args, v), 1,
+                                            dev)[0]
+        res[f"{v} bound ms"] = bound_ms(*roi_inner.work(args[0].shape[0], v))
+        for key, suffix in (("sum", ""), ("plain sum", " plain ms"), ("bound sum", " bound ms")):
+            total[key] += res[f"{v}{suffix}"]
+    print(json.dumps({"root": ROOT, "card": common.card(), **total, **res}))
 
 
 if __name__ == "__main__":
