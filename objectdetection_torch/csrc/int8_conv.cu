@@ -29,12 +29,12 @@
 //   ragged edges and K past its end), and the epilogue works on the
 //   accumulators in registers. The input is read once from device memory (a
 //   3x3 conv's nine taps hit L2), the output written once in its consumer's
-//   type, int8 inside a bottleneck block. The N tiles of one M tile are
-//   neighbours in the grid, so they share the A tile through L2. The
-//   residual tile arrives in shared memory in one round of 16-byte copies
-//   while the epilogue's first operations run, and the output tile leaves
-//   through shared memory in 16-byte stores (a lane's own pairs would take
-//   a round trip each, and 2-byte stores).
+//   type, int8 inside a bottleneck block and the int8 heads. The N tiles of
+//   one M tile are neighbours in the grid, so they share the A tile through
+//   L2. The residual tile arrives in shared memory in one round of 16-byte
+//   copies while the epilogue's first operations run, and the output tile
+//   leaves through shared memory in 16-byte stores (a lane's own pairs would
+//   take a round trip each, and 2-byte stores).
 // - Operations. mma.sync m16n8k32 s8 on the tensor cores; A and B fragments
 //   come from shared memory with ldmatrix, rows padded by 16 bytes so that
 //   ldmatrix's 8 rows meet no bank twice; a four-stage cp.async ring keeps
@@ -180,7 +180,7 @@ struct Smem {
   static_assert(2 * BM * SLD <= SV, "the staged tiles fit the ring");
 };
 
-// EPI: the epilogue's flags fixed at compile time (the main path's five
+// EPI: the epilogue's flags fixed at compile time (the main path's seven
 // epilogues in bf16), or -1 to read them from the arguments
 template <int BM, int BN, int EPI>
 __global__ void __launch_bounds__(NT, BM * BN <= 128 * 64 ? 3 : 2) int8_conv_kernel(const Args a) {
@@ -395,10 +395,12 @@ int launch(const Args& a, cudaStream_t stream) {
 }
 
 // the main path's epilogues (bf16): QuantConv's bias, the projection's
-// BatchNorm, conv 2a/2b, conv 2c with a bf16 or an int8 residual; any other
-// reads its flags at run time
+// BatchNorm, conv 2a/2b and mask convs 1-3, conv 2c with a bf16 or an int8
+// residual, the RPN's shared conv (ReLU, int8 out), mask conv 4 (BatchNorm,
+// ReLU); any other reads its flags at run time
 constexpr int EPI_PROJ = F_BN, EPI_AB = F_BN | F_RELU | F_OUT_INT8;
 constexpr int EPI_C_PROJ = EPI_AB | F_RES_FLOAT, EPI_C_ID = EPI_AB | F_RES_INT8;
+constexpr int EPI_RELU_Q = F_RELU | F_OUT_INT8, EPI_BN_RELU = F_BN | F_RELU;
 
 template <int BM, int BN>
 int dispatch(const Args& a, cudaStream_t s) {
@@ -406,6 +408,8 @@ int dispatch(const Args& a, cudaStream_t s) {
     case 0: return launch<BM, BN, 0>(a, s);
     case EPI_PROJ: return launch<BM, BN, EPI_PROJ>(a, s);
     case EPI_AB: return launch<BM, BN, EPI_AB>(a, s);
+    case EPI_RELU_Q: return launch<BM, BN, EPI_RELU_Q>(a, s);
+    case EPI_BN_RELU: return launch<BM, BN, EPI_BN_RELU>(a, s);
     case EPI_C_PROJ: return launch<BM, BN, EPI_C_PROJ>(a, s);
     case EPI_C_ID: return launch<BM, BN, EPI_C_ID>(a, s);
     default: return launch<BM, BN, -1>(a, s);

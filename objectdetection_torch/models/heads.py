@@ -7,8 +7,10 @@ over the ROI flattened in (ph, pw, C) order, as in the flax module.
 Quantized (``quant`` given): the box head's two 1024-wide layers are
 QuantDense and the mask head's four trunk convs QuantConv; both heads take
 an int8 pooled tensor with its scale (``in_scale``, from ROIAlign's int8
-epilogue) into their first layer. Logits, box deltas, the deconv and the
-final mask conv stay float.
+epilogue) into their first layer. Serving, each trunk conv's epilogue
+applies its BatchNorm and ReLU and, for convs 1-3, quantizes to the next
+conv's scale (``QuantConv.fused``), so the trunk passes int8 between its
+convs. Logits, box deltas, the deconv and the final mask conv stay float.
 """
 
 from __future__ import annotations
@@ -83,6 +85,7 @@ class MaskHead(nn.Module):
     def __init__(self, num_classes: int, channels: int = 256, cin: int | None = None,
                  quant: Optional[Quant] = None):
         super().__init__()
+        self.quant = quant
         for i in range(1, 5):
             c_in = (cin or channels) if i == 1 else channels
             self.add_module(f"mrcnn_mask_conv{i}", make_conv(quant, c_in, channels, 3))
@@ -94,18 +97,39 @@ class MaskHead(nn.Module):
         self.mrcnn_mask_deconv.bias = nn.Parameter(torch.zeros(channels), requires_grad=False)
         self.mrcnn_mask = Conv(channels, num_classes, 1)
 
+    def _int8_trunk(self, x: torch.Tensor, dtype: torch.dtype,
+                    in_scale: Optional[torch.Tensor]) -> torch.Tensor:
+        """The four trunk convs on int8 NHWC ``x`` (quantized with
+        ``in_scale``; float ``x`` is quantized here at conv 1's scale), each
+        with its BatchNorm and ReLU in the conv's epilogue; convs 1-3 write
+        int8 at the next conv's ``act_scale``, conv 4 the compute dtype. The
+        ops and roundings of BatchNorm, ReLU and ``quantize_nchw`` after each
+        conv, so the result is the unfused chain's. Returns NCHW."""
+        m = self._modules
+        convs = [m[f"mrcnn_mask_conv{i}"] for i in range(1, 5)]
+        scale = in_scale
+        if in_scale is None:
+            scale = convs[0].act_scale
+            x = Q.quantize_act(x.to(dtype), scale).contiguous()
+        out_scales = [conv.act_scale for conv in convs[1:]] + [None]
+        for i, (conv, out_scale) in enumerate(zip(convs, out_scales), start=1):
+            x = conv.fused(x, scale, bn=m[f"mrcnn_mask_bn{i}"].folded(), relu=True,
+                           out_scale=out_scale)
+            scale = out_scale
+        return Q.nchw(x)
+
     def forward(self, pooled: torch.Tensor, class_ids: Optional[torch.Tensor],
                 dtype: torch.dtype, in_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
         """pooled [B, R, 14, 14, C]: float, or int8 with its ``in_scale``."""
         b, r, ph, pw, c = pooled.shape
         x = pooled.reshape(b * r, ph, pw, c)
-        if in_scale is None:
+        if self.quant is not None and not Q.calibrating():
+            x = self._int8_trunk(x, dtype, in_scale)
+        else:  # float, or calibrating (a float pooled tensor)
             x = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
-        for i in range(1, 5):
-            conv = self._modules[f"mrcnn_mask_conv{i}"]
-            bn = self._modules[f"mrcnn_mask_bn{i}"]
-            x = conv(x, in_scale) if (i == 1 and in_scale is not None) else conv(x)
-            x = F.relu(bn(x))
+            for i in range(1, 5):
+                x = self._modules[f"mrcnn_mask_conv{i}"](x)
+                x = F.relu(self._modules[f"mrcnn_mask_bn{i}"](x))
         d = self.mrcnn_mask_deconv
         x = F.relu(F.conv_transpose2d(x, d.weight.to(dtype), d.bias.to(dtype), stride=2))
         x = x.to(torch.float32)

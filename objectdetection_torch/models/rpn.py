@@ -6,13 +6,14 @@ Each level's output is permuted to NHWC before the reshape, so rows follow
 the (level, y, x, anchor) order of ``anchors.config_anchors``.
 
 Quantized (``quant`` given), every conv is a QuantConv. One activation scale
-serves the shared conv's input over all levels, and ``shared_scale``
-quantizes its relu'd output once per level for both 1×1 heads, which run
-as one int8 conv of 2k + 4k outputs (``ops.int8_conv``): their kernels,
-per-channel scales and biases concatenate on the output axis, so the sums
-are those of two convs.
-``return_quantized_inputs`` also returns the int8 P-levels the shared conv
-quantized (with its input ``act_scale``), which ROIAlign can read
+serves the shared conv's input over all levels. The shared conv's epilogue
+applies the ReLU and quantizes with ``shared_scale`` (``QuantConv.fused``),
+so its output leaves as int8 for both 1×1 heads, which run as one int8 conv
+of 2k + 4k outputs (``ops.int8_conv``): their kernels, per-channel scales
+and biases concatenate on the output axis, so the sums are those of two
+convs. Calibration runs the float ops and records ``shared_scale``.
+``return_quantized_inputs`` also returns the int8 P-levels quantized for
+the shared conv (with its input ``act_scale``), which ROIAlign can read
 (``int8_align_inputs``).
 """
 
@@ -64,20 +65,18 @@ class RPNHead(nn.Module):
         if int8_infer:
             k8f, post, bias_f = self._fused_head()
         logits_all, deltas_all, x8_levels = [], [], []
-        in_scale = None
+        conv = self.rpn_conv_shared
         for fm in feature_maps:
-            if int8_infer and return_quantized_inputs:
-                y, (x8, in_scale) = self.rpn_conv_shared(fm, return_x8=True)
-                x8_levels.append(x8)
-            else:
-                y = self.rpn_conv_shared(fm)
-            shared = F.relu(y)
-            b = shared.shape[0]
+            b = fm.shape[0]
             if int8_infer:
-                s8 = Q.quantize_nchw(shared, self.shared_scale)
+                x8 = Q.quantize_nchw(fm, conv.act_scale)
+                if return_quantized_inputs:
+                    x8_levels.append(x8)
+                s8 = conv.fused(x8, conv.act_scale, relu=True, out_scale=self.shared_scale)
                 y = int8_conv.int8_conv_fused(s8, k8f, post, bias_f, dtype=q.dtype)
                 logits, deltas = y[..., : 2 * self.k], y[..., 2 * self.k:]
             else:
+                shared = F.relu(conv(fm))
                 if q is not None:  # calibration: one range over all levels
                     Q._record(self.shared_scale, shared, 1)
                 logits = self.rpn_class_raw(shared).permute(0, 2, 3, 1)
@@ -88,5 +87,5 @@ class RPNHead(nn.Module):
         deltas = torch.cat(deltas_all, dim=1).to(torch.float32)
         probs = torch.softmax(logits, dim=-1)
         if return_quantized_inputs:
-            return logits, probs, deltas, ((x8_levels, in_scale) if int8_infer else None)
+            return logits, probs, deltas, ((x8_levels, conv.act_scale) if int8_infer else None)
         return logits, probs, deltas

@@ -25,7 +25,8 @@ What bounds it on the H100, at batch 96 and 1024²: bytes in ResNet stages
 operations in stages 4-5, the RPN's shared 3×3 conv and the mask head's
 14×14 convs. The design (``csrc/int8_conv.cu``): no im2col matrix and no f32
 or bf16 intermediate in device memory (the taps are addressed in place and
-the epilogue works in registers), int8 out inside a bottleneck block; the
+the epilogue works in registers), int8 out inside a bottleneck block, from
+the RPN's shared conv and between the mask head's convs; the
 product on the int8 tensor cores through a four-stage ``cp.async`` ring.
 The tile is chosen from the shapes alone (:func:`tile`).
 
@@ -187,10 +188,12 @@ def _launch(x8, k8, post, bias, stride, padding, bn, residual, relu, out_scale, 
 
 
 # the epilogues of mask_rcnn_convs: bias and bf16 out (QuantConv), the
-# projection (+ BatchNorm), conv 2a / 2b (+ BatchNorm, ReLU, int8 out), conv
-# 2c (+ BatchNorm, the residual, ReLU, int8 out) of a projection block (a
-# bf16 residual) and of an identity block (its int8 input, dequantized)
-EPILOGUES = ("bias", "proj", "ab", "c_proj", "c_id")
+# projection (+ BatchNorm), conv 2a / 2b and mask convs 1-3 (+ BatchNorm,
+# ReLU, int8 out), conv 2c (+ BatchNorm, the residual, ReLU, int8 out) of a
+# projection block (a bf16 residual) and of an identity block (its int8
+# input, dequantized), the RPN's shared conv (+ ReLU, int8 out), mask conv 4
+# (+ BatchNorm, ReLU)
+EPILOGUES = ("bias", "proj", "ab", "c_proj", "c_id", "relu_q", "bn_relu")
 
 
 def mask_rcnn_convs(batch: int, image: int = 1024, stage4_blocks: int = 22,
@@ -199,7 +202,7 @@ def mask_rcnn_convs(batch: int, image: int = 1024, stage4_blocks: int = 22,
     :func:`int8_conv_fused` (ResNet + FPN at image², R-101's stage 4 with
     ``stage4_blocks`` identity blocks, the RPN at P2-P6, the mask head on
     batch × ``rois`` ROIs): (name, B, H, W, Cin, Cout, k, stride, epilogue of
-    ``EPILOGUES``, calls). R-101 at 1024²: 125 calls, 99 of them int8 out."""
+    ``EPILOGUES``, calls). R-101 at 1024²: 125 calls, 107 of them int8 out."""
     convs = []
     h, c = image // 4, 64  # after the stem and its max pool
     for stage, (f1, f3, stride, blocks) in enumerate(
@@ -219,9 +222,10 @@ def mask_rcnn_convs(batch: int, image: int = 1024, stage4_blocks: int = 22,
     for size in sizes:
         convs.append((f"fpn p {size}", batch, size, size, 256, 256, 3, 1, "bias", 1))
     for size in sizes + [image // 64]:
-        convs += [(f"rpn shared {size}", batch, size, size, 256, 512, 3, 1, "bias", 1),
+        convs += [(f"rpn shared {size}", batch, size, size, 256, 512, 3, 1, "relu_q", 1),
                   (f"rpn head {size}", batch, size, size, 512, 18, 1, 1, "bias", 1)]
-    convs.append(("mask", batch * rois, 14, 14, 256, 256, 3, 1, "bias", 4))
+    convs += [("mask 1-3", batch * rois, 14, 14, 256, 256, 3, 1, "ab", 3),
+              ("mask 4", batch * rois, 14, 14, 256, 256, 3, 1, "bn_relu", 1)]
     return convs
 
 

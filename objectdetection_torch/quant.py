@@ -293,11 +293,9 @@ class QuantConv(_QuantLayer):
             y = F.conv2d(F.pad(x, (l, r, t, b)), k, stride=self.stride)
         return y + self.bias.to(x.dtype).view(1, -1, 1, 1)
 
-    def forward(self, x: torch.Tensor, in_scale: Optional[torch.Tensor] = None,
-                return_x8: bool = False):
+    def forward(self, x: torch.Tensor, in_scale: Optional[torch.Tensor] = None):
         """x: float NCHW, or (with ``in_scale``) int8 NHWC quantized with that
-        scale. Returns float NCHW in the compute dtype, plus ``(x8, scale)``
-        of the int8 input with ``return_x8`` (int8 path only)."""
+        scale. Returns float NCHW in the compute dtype."""
         dt = self.dtype
         if calibrating():
             if self.weight.dtype == torch.int8:
@@ -305,8 +303,6 @@ class QuantConv(_QuantLayer):
             _record(self.act_scale, x, 1, owner=self if self.sows_mean else None)
             return self._conv_float(x.to(dt), self.weight.to(dt))
         if not self.int8_compute:
-            if return_x8:
-                raise ValueError("return_x8 needs the int8 path")
             act = self.act_scale
             k8, sw = self._qparams(act)
             k = k8.to(torch.float32) * sw.view(-1, 1, 1, 1)
@@ -321,8 +317,7 @@ class QuantConv(_QuantLayer):
             x8, scale = x, in_scale
         else:
             x8, scale = quantize_nchw(x, act), act
-        y = nchw(self.fused(x8, scale))
-        return (y, (x8, scale)) if return_x8 else y
+        return nchw(self.fused(x8, scale))
 
     def fused(self, x8: torch.Tensor, scale: torch.Tensor, **epilogue) -> torch.Tensor:
         """The int8 conv of ``x8`` (int8 NHWC, quantized with ``scale``) with

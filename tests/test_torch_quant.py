@@ -5,7 +5,7 @@ and ``objectdetection_torch.quant``:
 
 - ``quantize_act``, ``dequantize_act`` and ``weight_qparams`` bit-equal;
 - ``QuantConv`` / ``QuantDense`` against the flax modules on the same
-  params, per-tensor and per-channel, with ``in_scale``, ``return_x8``,
+  params, per-tensor and per-channel, with ``in_scale``,
   frozen kernels and ``int8_compute=False``. The convs are small, so JAX's
   f32 simulation of the integer product is exact and the int8 paths agree
   bit for bit (f32 compute); the float calibration path agrees at f32
@@ -116,15 +116,12 @@ def test_quant_conv_int8_path_bit_equal(k, stride, cin, cout, pc):
     want = np.asarray(jmod.apply(variables, jnp.asarray(x)))
     xt = t(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     np.testing.assert_array_equal(nhwc(tmod(xt)), want)
-    # a pre-quantized int8 input with its scale, and the shared int8 copy
+    # a pre-quantized int8 input with its scale
     x8 = np.asarray(jq.quantize_act(jnp.asarray(x), variables["quant"]["act_scale"]))
     s_in = variables["quant"]["act_scale"]
-    want2, (jx8, js) = jmod.apply(variables, jnp.asarray(x8), in_scale=jnp.asarray(s_in),
-                                  return_x8=True)
-    got2, (tx8, ts) = tmod(t(x8), in_scale=t(s_in), return_x8=True)
+    want2 = jmod.apply(variables, jnp.asarray(x8), in_scale=jnp.asarray(s_in))
+    got2 = tmod(t(x8), in_scale=t(s_in))
     np.testing.assert_array_equal(nhwc(got2), np.asarray(want2))
-    np.testing.assert_array_equal(tx8.numpy(), np.asarray(jx8))
-    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(nhwc(got2), want)  # same codes either way
 
 
@@ -345,6 +342,10 @@ FUSED_CASES = [
     (1, 1, None, 32, 64, False, "c_id", "bfloat16"),
     (1, 1, None, 32, 64, True, "c_id", "bfloat16"),
     (3, 1, None, 16, 64, True, "c_id", "float32"),
+    (3, 1, None, 32, 64, True, "relu_q", "bfloat16"),
+    (3, 1, None, 80, 64, False, "relu_q", "bfloat16"),
+    (3, 1, None, 32, 64, True, "bn_relu", "bfloat16"),
+    (3, 1, None, 16, 64, False, "bn_relu", "float32"),
 ]
 
 
@@ -361,10 +362,12 @@ def fused_case(kh, stride, padding, cin, cout, pc, epilogue, dtype, seed=11):
     bias = torch.randn(cout, generator=g) * 0.1
     scale = lambda: (torch.rand(cout, generator=g) + 0.5) * 3 if pc else torch.tensor(2.0)
     kw = dict(stride=stride, padding=padding, dtype=dt)
-    if epilogue != "bias":
+    if epilogue not in ("bias", "relu_q"):
         kw["bn"] = (torch.rand(cout, generator=g) + 0.5, torch.randn(cout, generator=g) * 0.1)
-    if epilogue in ("ab", "c_proj", "c_id"):
-        kw.update(relu=True, out_scale=scale())
+    if epilogue not in ("bias", "proj"):
+        kw["relu"] = True
+    if epilogue in ("relu_q", "ab", "c_proj", "c_id"):
+        kw["out_scale"] = scale()
     ho, wo = ic.Q.int8_conv(x8, k8, stride, padding).shape[1:3]
     if epilogue == "c_proj":
         kw["residual"] = (torch.randn(2, ho, wo, cout, generator=g) * 2).to(dt)
@@ -491,8 +494,8 @@ def test_int8_conv_tile_plan_and_cell_convs():
     assert ic.tile(3000, 256) == (128, 64)  # 24 x 2 blocks of 128 x 128: fewer than FILL
     assert ic.tile(30000, 64) == (128, 64)  # 118 blocks of 256 x 64
     convs = ic.mask_rcnn_convs(96)
-    int8_out = sum(c[-1] for c in convs if c[-2] in ("ab", "c_proj", "c_id"))
-    assert (sum(c[-1] for c in convs), int8_out) == (125, 99)
+    int8_out = sum(c[-1] for c in convs if c[-2] in ("relu_q", "ab", "c_proj", "c_id"))
+    assert (sum(c[-1] for c in convs), int8_out) == (125, 107)
     assert {c[-2] for c in convs} == set(ic.EPILOGUES)
     ops = sum(ic.conv_bound(*c[1:8])[0] * c[-1] for c in convs)
     assert 70.0e12 < ops < 70.2e12  # perfbench/counts.py: 41.3 + 19.9 + 8.9 TOP
@@ -579,6 +582,120 @@ def test_int8_block_chain_equals_unfused_blocks(dtype, per_channel):
     assert len(seen) == 16 and min(seen) > 10  # every R50 block, codes spread
 
 
+def unfused_rpn(rpn, feature_maps):
+    """An int8 RPNHead as it ran before its shared conv's epilogue was fused:
+    each level quantized with quantize_nchw, QuantConv (bias epilogue, bf16
+    out), ReLU and quantize_nchw as separate ops, then the fused 1×1 head.
+    Returns (logits, deltas, int8 levels, their scale)."""
+    import torch.nn.functional as F
+
+    from objectdetection_torch.ops import int8_conv as ic
+
+    k8f, post, bias_f = rpn._fused_head()
+    conv, scale = rpn.rpn_conv_shared, rpn.rpn_conv_shared.act_scale
+    logits_all, deltas_all, levels = [], [], []
+    for fm in feature_maps:
+        x8 = tq.quantize_nchw(fm, scale)
+        levels.append(x8)
+        s8 = tq.quantize_nchw(F.relu(conv(x8, in_scale=scale)), rpn.shared_scale)
+        y = ic.int8_conv_fused(s8, k8f, post, bias_f, dtype=rpn.quant.dtype)
+        logits_all.append(y[..., : 2 * rpn.k].reshape(fm.shape[0], -1, 2))
+        deltas_all.append(y[..., 2 * rpn.k:].reshape(fm.shape[0], -1, 4))
+    return (torch.cat(logits_all, 1).float(), torch.cat(deltas_all, 1).float(), levels, scale)
+
+
+def unfused_mask_trunk(head, x, dtype, in_scale):
+    """An int8 MaskHead's four trunk convs as they ran before their
+    epilogues were fused: QuantConv (quantizing a float input, bias
+    epilogue, bf16 out), then BatchNorm and ReLU as separate ops; each
+    next conv quantizes with quantize_nchw. Returns NCHW."""
+    import torch.nn.functional as F
+
+    m = head._modules
+    if in_scale is None:
+        x = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
+    for i in range(1, 5):
+        conv = m[f"mrcnn_mask_conv{i}"]
+        x = conv(x, in_scale) if (i == 1 and in_scale is not None) else conv(x)
+        x = F.relu(m[f"mrcnn_mask_bn{i}"](x))
+    return x
+
+
+@pytest.mark.parametrize("per_channel,int8_pooled", [(False, True), (True, True),
+                                                      (True, False)])
+def test_int8_heads_equal_their_unfused_chains(per_channel, int8_pooled):
+    """The RPN's logits, deltas and int8 levels and the mask head's trunk
+    and masks equal the unfused chain bit for bit; every head conv runs
+    through ``QuantConv.fused`` with its epilogue, none through its forward.
+    Without ``int8_pooled`` the mask head takes a float pooled tensor."""
+    from objectdetection_torch import detector
+
+    cfg, frozen, images = _small_int8_state("bfloat16", per_channel)
+    cfg = cfg.replace(int8_pooled=int8_pooled)
+    model = detector.build_model(cfg)
+    rpn, head = model.rpn_model, model.mrcnn_mask
+    convs = {rpn.rpn_conv_shared: "shared", **{
+        head._modules[f"mrcnn_mask_conv{i}"]: f"mask{i}" for i in range(1, 5)}}
+    calls, checked = [], []
+    in_model = [True]  # False while a hook runs the reference
+    real_fused = tq.QuantConv.fused
+
+    def spy(self, x8, scale, **epilogue):
+        if self in convs and in_model[0]:  # (conv, BatchNorm, ReLU, int8 out)
+            calls.append((convs[self], "bn" in epilogue, epilogue.get("relu", False),
+                          epilogue.get("out_scale") is not None))
+        return real_fused(self, x8, scale, **epilogue)
+
+    def reference(check):
+        def hook(module, *a):
+            in_model[0] = False
+            try:
+                check(module, *a)
+            finally:
+                in_model[0] = True
+            checked.append(type(module).__name__)
+        return hook
+
+    def rpn_check(module, args, kwargs, out):
+        logits, _, deltas, (levels, scale) = out
+        want = unfused_rpn(module, args[0])
+        assert torch.equal(logits, want[0]) and torch.equal(deltas, want[1])
+        assert len(levels) == len(want[2]) == 5 and scale is want[3]
+        assert all(torch.equal(a, b) for a, b in zip(levels, want[2]))
+
+    def head_check(module, args, kwargs, out):
+        pooled, _, dtype = args
+        in_scale = kwargs.get("in_scale")
+        assert (pooled.dtype == torch.int8) == (in_scale is not None) == int8_pooled
+        x = pooled.reshape(-1, *pooled.shape[2:])
+        trunk = unfused_mask_trunk(module, x, dtype, in_scale)
+        assert torch.equal(module._int8_trunk(x, dtype, in_scale), trunk)
+        module._int8_trunk = lambda *a: trunk
+        try:
+            want = module.forward(*args, **kwargs)
+        finally:
+            del module._int8_trunk
+        assert torch.equal(out, want)
+
+    handles = [rpn.register_forward_hook(reference(rpn_check), with_kwargs=True),
+               head.register_forward_hook(reference(head_check), with_kwargs=True)]
+    handles += [c.register_forward_hook(lambda m, a, o: calls.append((convs[m], "forward"))
+                                        if in_model[0] else None) for c in convs]
+    windows = torch.tensor([[0.0, 0.0, 64.0, 64.0]] * 2)
+    try:
+        tq.QuantConv.fused = spy
+        with torch.inference_mode():
+            detector.forward_inference(frozen, images, windows, cfg)
+    finally:
+        tq.QuantConv.fused = real_fused
+        for h in handles:
+            h.remove()
+    assert checked == ["RPNHead", "MaskHead"]
+    assert calls == [("shared", False, True, True)] * 5 + [
+        ("mask1", True, True, True), ("mask2", True, True, True),
+        ("mask3", True, True, True), ("mask4", True, True, False)]
+
+
 def test_int8_conv_counters_over_one_call():
     from objectdetection_torch import detector, metrics
     from objectdetection_torch.ops import cuda_build
@@ -591,7 +708,7 @@ def test_int8_conv_counters_over_one_call():
         detector.forward_inference(frozen, images, windows, cfg)
     rec.resolve()
     convs = ic.mask_rcnn_convs(2, 64, 5, cfg.detection_post_nms_instances)
-    int8_out = sum(c[-1] for c in convs if c[-2] in ("ab", "c_proj", "c_id"))
+    int8_out = sum(c[-1] for c in convs if c[-2] in ("relu_q", "ab", "c_proj", "c_id"))
     assert (rec.counters["int8_conv.launches"], rec.counters["int8_conv.int8_out"]) == (
-        sum(c[-1] for c in convs), int8_out) == (74, 48)
+        sum(c[-1] for c in convs), int8_out) == (74, 56)
     assert cuda_build.launches("int8_conv") == before  # the CPU ran the plain version

@@ -172,10 +172,12 @@ def int8_conv_case(dev, b, h, w, cin, cout, k, stride, epilogue, pc=True,
     bias = randn(cout) * 0.1
     scale = lambda: (rand(cout) + 0.5) * 3 if pc else torch.tensor(2.0, device=dev)
     kw = dict(stride=stride, padding=padding, dtype=dtype)
-    if epilogue != "bias":
+    if epilogue not in ("bias", "relu_q"):
         kw["bn"] = (rand(cout) + 0.5, randn(cout) * 0.1)
-    if epilogue in ("ab", "c_proj", "c_id"):
-        kw.update(relu=True, out_scale=scale())
+    if epilogue not in ("bias", "proj"):
+        kw["relu"] = True
+    if epilogue in ("relu_q", "ab", "c_proj", "c_id"):
+        kw["out_scale"] = scale()
     t, bo, l, r = Q.conv_pads(padding, h, w, k, stride)
     ho, wo = (h + t + bo - k) // stride + 1, (w + l + r - k) // stride + 1
     if epilogue == "c_proj":
