@@ -123,9 +123,18 @@ and tools); any failure exits non-zero and prints no result:
    steps (anchor matching over 196,416 anchors once a step); each forward
    runs the epilogue pass 112 times, each held against the plain version at
    the call. Every NMS and anchor-match
-   call of the phase is recorded and held against its plain version on its
+   call of (a)-(d) is recorded and held against its plain version on its
    own inputs (survivor tables identical, matches exact); NMS at 12000 ->
-   2000 and each anchor-match shape are timed beside their bounds. ms a
+   2000 and each anchor-match shape are timed beside their bounds; (e)
+   Hybrid Task Cascade (``HTCConfig``: R101-FPN, semantic branch, three box
+   stages and three mask heads, 81 classes, 1024², bf16, seeded weights)
+   through ``models.htc.make_infer_fn``: per batch NMS twice (the second
+   per class: B × 80 problems of 1000 rows, budget 100), ROIAlign 8 times
+   (4 on the semantic feature's single map) and the epilogue pass 136
+   times; each call held against its plain version (NMS identical, bf16
+   ROIAlign within ``bf16_tolerance``, the epilogue bit-equal at the call),
+   and the per-class detection layer on the forward's own stages identical
+   with B2 and with the plain NMS. ms a
    batch and a step, the device busy share of one profiled batch and step,
    and peak memory are printed with the card's name and power limit;
 12. data and tensor parallelism (``parallel.py``) at COCO_CONFIG with phase
@@ -1996,6 +2005,10 @@ IN_PLACE = ("conv_epilogue",)
 # the float convs of one ResNetFPN inference call, each with one epilogue
 # pass on the card (R-101 and R-50, either pyramid)
 FLOAT_CONVS = {"resnet101": 112, "resnet50": 61}
+# the float convs of Hybrid Task Cascade's heads, each with one epilogue pass:
+# the semantic head's five laterals, four 3×3 convs and embedding; the mask
+# heads' 3 × 4 3×3 convs and two conv_res
+HTC_FLOAT_CONVS = 24
 
 
 @contextlib.contextmanager
@@ -2414,10 +2427,89 @@ def retinanet_family(name, cfg, device, card, calls):
         fail(f"{name} training: count {state.count}")
 
 
+def htc_family(device, card):
+    """11(e): Hybrid Task Cascade (``HTCConfig``: R101-FPN, 81 classes,
+    1024², bf16) through ``models.htc.make_infer_fn``; every NMS, ROIAlign
+    and epilogue call of the forward held against its plain version, and the
+    per-class detection layer against itself on the plain NMS. Returns
+    {kernel row: largest |kernel - plain|}."""
+    import torch
+
+    from objectdetection_torch import checkpoint
+    from objectdetection_torch.config import HTCConfig
+    from objectdetection_torch.convert import init_htc_params
+    from objectdetection_torch.layers.detection import per_class_detection_layer
+    from objectdetection_torch.models import htc
+    from objectdetection_torch.ops import nms
+
+    cfg = HTCConfig()
+    params = checkpoint.cast_params_for_inference(
+        init_htc_params(cfg, torch.Generator().manual_seed(0), device))
+    images = train_batch(cfg, device).images
+    windows = torch.tensor([[0.0, 0.0, *cfg.image_shape[:2]]] * BATCH, device=device)
+    infer = htc.make_infer_fn(cfg, device=device)
+    convs, calls, epilogues = FLOAT_CONVS[cfg.backbone] + HTC_FLOAT_CONVS, [], []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recorded_inputs(calls, ("nms", "roi_align")), \
+            recorded_inputs(epilogues, ("conv_epilogue",)):
+        det, masks = driven("htc forward", lambda: infer(params, images, windows),
+                            {"nms": 2, "roi_align": 2 * cfg.num_stages + 2,
+                             "conv_epilogue": convs})
+    first = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_out = cfg.detection_post_nms_instances
+    if det.shape != (BATCH, n_out, 6) or masks.shape != (BATCH, n_out, 28, 28) or not (
+            bool(torch.isfinite(det).all()) and bool(torch.isfinite(masks).all())):
+        fail(f"htc: detections {tuple(det.shape)}, masks {tuple(masks.shape)} or not finite")
+    check_epilogues("htc forward", epilogues, convs)
+    per_class = [args for kind, args, _ in calls
+                 if kind == "nms" and args[0].shape[0] == BATCH * (cfg.num_classes - 1)]
+    single_map = [args for kind, args, _ in calls if kind == "roi_align" and len(args[0]) == 1]
+    if len(per_class) != 1 or len(single_map) != cfg.num_stages + 1:
+        fail(f"htc forward: {len(per_class)} per-class NMS calls, {len(single_map)} single-map "
+             f"ROIAlign calls, want 1 and {cfg.num_stages + 1}")
+    rows = check_against_plain("htc forward", calls)
+    log(f"htc forward: per-class NMS over {tuple(per_class[0][0].shape)} -> {per_class[0][3]}, "
+        f"single-map ROIAlign on {tuple(single_map[0][0][0].shape)} "
+        f"({tuple(single_map[0][1].shape)} boxes): each == plain, or within its bound")
+    del calls, epilogues
+
+    # the per-class detection layer on the forward's own stages, B2 and plain
+    with torch.inference_mode():
+        _, _, at = htc.apply(params, images, windows, cfg, return_intermediates=True)
+        stages = at["stages"]
+        probs = torch.softmax(sum(s[1] for s in stages) / len(stages), dim=-1)
+        args = (stages[-1][3], probs, (at["proposals"] != 0).any(-1), cfg.score_threshold, cfg)
+        det_k = per_class_detection_layer(*args)
+        saved, nms.suppress = nms.suppress, nms.suppress_plain
+        try:
+            det_p = per_class_detection_layer(*args)
+        finally:
+            nms.suppress = saved
+    if not torch.equal(det_k, det_p):
+        fail("htc: the per-class detection layer differs between B2 and the plain NMS")
+    candidates = int(((probs[..., 1:] > cfg.score_threshold)
+                      & (at["proposals"] != 0).any(-1)[..., None]).sum())
+    log(f"htc detection layer: == plain NMS on the forward's stages ({BATCH} x "
+        f"{cfg.num_classes - 1} problems of {probs.shape[1]} rows, {candidates} candidates, "
+        f"{int((det_k[..., 5] > 0).sum())} rows)")
+    del at, stages, probs, det_k, det_p
+
+    ms = time_host_ms(lambda: infer(params, images, windows), REPS)
+    wall, busy, _ = profiled_ms(lambda: infer(params, images, windows), name="phase 11(e)")
+    log(f"htc (R101-FPN 1024² bf16, B={BATCH}, seeded weights): {int((det[..., 5] > 0).sum())} "
+        f"detections; first batch {first:.1f} ms, {ms:.1f} ms a batch; profiled batch wall "
+        f"{wall:.1f} ms, device busy {busy:.1f} ms ({100 * busy / wall:.1f}%); launches NMS 2, "
+        f"ROIAlign {2 * cfg.num_stages + 2}, epilogue {convs} a batch; peak {peak:.2f} GiB "
+        f"[{card}]")
+    return {row: err for row, (_, err) in rows.items()}
+
+
 def families_phase(device, card):
-    """11: the Faster R-CNN and RetinaNet families; then NMS and anchor
-    matching against their plain versions on the inputs the phase gave
-    them. Returns check_recorded's gaps."""
+    """11: the Faster R-CNN, RetinaNet and HTC families; then NMS and
+    anchor matching against their plain versions on the inputs the phase
+    gave them. Returns the largest |kernel - plain| of each kernel."""
     from objectdetection_torch.config import COCO_CONFIG, RetinaNetConfig
 
     t0 = time.perf_counter()
@@ -2426,6 +2518,9 @@ def families_phase(device, card):
     retinanet_family("retinanet", COCO_CONFIG, device, card, calls)
     retinanet_family("retinanet published", RetinaNetConfig(), device, card, calls)
     errs = check_recorded(calls, card)
+    del calls
+    for row, err in htc_family(device, card).items():
+        errs[row] = max(errs.get(row, 0.0), err)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
     return errs
 

@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of the detectors in ``objectdetection_tpu``.
 
-Three families on an NVIDIA Hopper card, each served and trained:
+Four families on an NVIDIA Hopper card, three of them served and trained:
 
 - Mask R-CNN (ResNet + FPN): ``detector.make_infer_fn`` and
   ``detector.make_train_step``, the server (``serve``) and the commands
@@ -10,7 +10,10 @@ Three families on an NVIDIA Hopper card, each served and trained:
 - RetinaNet (ResNet + FPN): ``models.retinanet.make_infer_fn`` and
   ``models.retinanet.make_retinanet_train_step``; the JAX package's head
   on a ``DetectorConfig``, the published one (P3–P7, 9 anchors a location,
-  the per-level decode) on a ``RetinaNetConfig``.
+  the per-level decode) on a ``RetinaNetConfig``;
+- Hybrid Task Cascade (ResNet + FPN, three box and mask stages, the
+  semantic branch): ``models.htc.make_infer_fn`` on an ``HTCConfig``,
+  served only.
 
 Mask R-CNN also runs data- and tensor-parallel on ``torch.distributed``
 (``parallel``: one process a device, NCCL on the card), and ``cli
@@ -30,5 +33,6 @@ from objectdetection_torch.config import (  # noqa: F401
     SHAPES_CONFIG,
     DetectorConfig,
     FasterRCNNConfig,
+    HTCConfig,
     RetinaNetConfig,
 )

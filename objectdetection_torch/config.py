@@ -26,11 +26,17 @@ publishes it (P3..P7, 9 anchors a location, the per-level decode): a
 ``score_threshold``, ``pre_nms_per_level``) and the paper's defaults.
 ``DetectorConfig`` itself keeps the JAX package's fields and defaults, and
 with them its RetinaNet.
+
+:class:`HTCConfig` has no JAX counterpart either: Hybrid Task Cascade as
+published (three interleaved box and mask stages, the semantic branch,
+per-class detection), served by :mod:`objectdetection_torch.models.htc` on
+the Mask R-CNN backbone, RPN and proposal layer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -225,6 +231,52 @@ class RetinaNetConfig(DetectorConfig):
     def fpn_levels(self) -> Tuple[int, ...]:
         """Pyramid levels carrying anchors (P3..P7)."""
         return tuple(range(3, 3 + len(self.backbone_strides)))
+
+
+@dataclass(frozen=True)
+class HTCConfig(DetectorConfig):
+    """Hybrid Task Cascade (Chen et al., arXiv:1901.07518; mmdetection's
+    ``configs/htc/htc_r101_fpn_20e_coco.py`` and its test path,
+    ``HybridTaskCascadeRoIHead.simple_test``) on the Mask R-CNN backbone,
+    RPN and proposal layer of a ``DetectorConfig``:
+
+    - a semantic branch on P2..P6: each level resized bilinearly (corners
+      aligned) to the size of level ``semantic_fusion_level`` (1: P3), a
+      1×1 conv + ReLU a level, summed, then 4 × (3×3 conv + ReLU) and a 1×1
+      embedding + ReLU, all ``fpn_channels`` wide; its 183-wide logits feed
+      only the training loss;
+    - ``len(stage_stds)`` box stages, each ROIAlign ``pool_shape`` over
+      P2..P5 plus the semantic feature pooled at ``mask_pool_shape`` and
+      average-pooled to ``pool_shape``, two ``fc_channels``-wide layers +
+      ReLU, a class output and a class-agnostic box output decoded at the
+      stage's ``stage_stds`` (the log-size delta clamped at
+      ``max_log_size_delta``, boxes clipped to the window); each stage but
+      the last refines the ROIs of the next;
+    - detection: the stages' class logits averaged, a softmax, every
+      (ROI, class) pair above ``score_threshold`` through per-class NMS at
+      ``detection_nms_threshold``, the best ``detection_post_nms_instances``;
+    - one mask head a stage on the detections (ROIAlign ``mask_pool_shape``
+      plus the semantic feature pooled there), 4 × (3×3 conv 256 + ReLU), a
+      2×2 stride-2 deconv + ReLU, a 1×1 class output; head t > 0 first adds
+      a 1×1 conv + ReLU of head t − 1's trunk output; the mask is the mean
+      of the heads' sigmoids at the detected class.
+
+    Inference only (:func:`objectdetection_torch.detector.check_supported`).
+    """
+
+    name: str = "htc"
+    stage_stds: Tuple[Tuple[float, float, float, float], ...] = (
+        (0.1, 0.1, 0.2, 0.2), (0.05, 0.05, 0.1, 0.1), (0.033, 0.033, 0.067, 0.067))
+    max_log_size_delta: float = abs(math.log(16 / 1000))
+    fc_channels: int = 1024
+    semantic_fusion_level: int = 1
+    score_threshold: float = 0.001
+    detection_nms_threshold: float = 0.5
+    detection_post_nms_instances: int = 100
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.stage_stds)
 
 
 @dataclass(frozen=True)

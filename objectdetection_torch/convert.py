@@ -251,3 +251,13 @@ def init_retinanet_params(config: DetectorConfig, generator: Optional[torch.Gene
     from objectdetection_torch.models.retinanet import RetinaNet
 
     return _draw(RetinaNet(config), generator, device, he=_STEM)
+
+
+def init_htc_params(config, generator: Optional[torch.Generator] = None,
+                    device="cuda") -> Dict[str, torch.Tensor]:
+    """Random f32 Hybrid Task Cascade state dict for an ``HTCConfig``: the
+    backbone as :func:`init_params` draws it, every head kernel
+    ``lecun_normal``, zero biases."""
+    from objectdetection_torch.models.htc import HTC
+
+    return _draw(HTC(config), generator, device, he=_STEM)

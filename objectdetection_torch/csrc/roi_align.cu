@@ -6,7 +6,9 @@
 // objectdetection_tpu/ops/roi_align.py `batched_multilevel_roi_align`:
 //   - each box picks a level of P2..P5 by the FPN rule (`roi_levels`):
 //     4 + round(log2(sqrt(max(h*w, 1e-12)) / (224 / sqrt(image area)))),
-//     zero-area boxes go to P2, clipped to [2, 5];
+//     zero-area boxes go to P2, clipped to [2, 5]; with fewer levels given
+//     (trailing h = w = 0: one map alone, the cascade's semantic feature),
+//     clipped to the last given, as `roi_levels(max_level=1 + levels)`;
 //   - a pool x pool grid of samples at y1*(H-1) + i*((y2-y1)*(H-1)/(P-1));
 //   - bilinear weights from floor(); corners summed in the order
 //     (y0,x0), (y0,x1), (y1,x0), (y1,x1), each weight a float product cast to
@@ -104,6 +106,7 @@ struct Levels {
   int h[4];
   int w[4];
   long long base[5];  // first table row of each level (batch * h * w rows each); base[4]: length
+  int count;          // levels given (1..4); the ones after have h = w = 0 and no rows
 };
 
 struct Pyramid {
@@ -190,7 +193,7 @@ __device__ __forceinline__ bool roi_tables(const Levels& dims, float4 b, int img
       const float l2 = __fdiv_rn(logf(scale), ln2);
       lvl = wrap_add(4, xla_to_s32(rintf(l2)));
     }
-    s.level = min(max(lvl, 2), 5) - 2;
+    s.level = min(max(lvl, 2), dims.count + 1) - 2;
   }
   __syncthreads();
   const int li = s.level;
@@ -708,10 +711,12 @@ roi_align_backward_kernel(SumPyramid sums, const float4* __restrict__ boxes,
 Levels make_levels(const int* hw, int batch) {
   Levels d;
   d.base[0] = 0;
+  d.count = 0;
   for (int l = 0; l < 4; ++l) {
     d.h[l] = hw[2 * l];
     d.w[l] = hw[2 * l + 1];
     d.base[l + 1] = d.base[l] + (long long)batch * d.h[l] * d.w[l];
+    if (d.h[l] > 0) d.count = l + 1;
   }
   return d;
 }
@@ -802,7 +807,8 @@ int launch_backward(const void* grad_out, const int* hw, const void* boxes, void
 }  // namespace
 
 // feats: 4 device pointers (P2..P5, NHWC contiguous, [batch, h_l, w_l, channels]);
-// hw: 8 host ints (h_2, w_2, ..., h_5, w_5); boxes: [batch, rois, 4] f32;
+// hw: 8 host ints (h_2, w_2, ..., h_5, w_5; zeros after the last level given,
+// whose pointers are not read); boxes: [batch, rois, 4] f32;
 // out: [batch, rois, ph, pw, channels] in the feature type.
 extern "C" int roi_align_f32(const void* p2, const void* p3, const void* p4, const void* p5,
                              const int* hw, const void* boxes, void* out, int batch, int rois,

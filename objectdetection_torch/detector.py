@@ -41,7 +41,7 @@ from torch.func import functional_call
 from objectdetection_torch import losses as losses_lib
 from objectdetection_torch import metrics, optim
 from objectdetection_torch.anchors import config_anchors
-from objectdetection_torch.config import DetectorConfig
+from objectdetection_torch.config import DetectorConfig, HTCConfig
 from objectdetection_torch.convert import (
     init_params, require_on, resolve_device, split_collections,
 )
@@ -70,7 +70,13 @@ class Detections(NamedTuple):
 
 def check_supported(config: DetectorConfig, training: bool = False) -> None:
     """Raise for what the port does not run (no silent float fallback): the
-    int8 path serves only, as in JAX (round and clip have no gradient)."""
+    int8 path serves only, as in JAX (round and clip have no gradient); an
+    ``HTCConfig`` is served by ``models.htc`` and does not train."""
+    if isinstance(config, HTCConfig):
+        raise NotImplementedError(
+            "an HTCConfig (Hybrid Task Cascade) is served by models.htc.make_infer_fn; "
+            "the port does not train it, nor run it through the Mask R-CNN entry points"
+        )
     if training and config.quantized_inference:
         raise NotImplementedError(
             "quantized_inference is the int8 serving path: training needs the float config"

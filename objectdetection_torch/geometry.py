@@ -56,6 +56,16 @@ def apply_box_deltas(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
     return torch.stack([y1, x1, y2, x2], dim=-1)
 
 
+def decode_box_deltas(boxes: torch.Tensor, deltas: torch.Tensor, stddev,
+                      max_log_size: float) -> torch.Tensor:
+    """A cascade stage's decode: ``deltas`` [..., 4] (dy, dx, log dh, log dw)
+    times ``stddev``, the log sizes clamped to ±``max_log_size`` (mmdetection's
+    ``wh_ratio_clip``), applied to ``boxes`` [..., 4]."""
+    d = deltas * torch.as_tensor(stddev, dtype=deltas.dtype, device=deltas.device)
+    d = torch.cat([d[..., :2], d[..., 2:].clamp(-max_log_size, max_log_size)], dim=-1)
+    return apply_box_deltas(boxes, d)
+
+
 def encode_box_deltas(boxes: torch.Tensor, gt_boxes: torch.Tensor) -> torch.Tensor:
     """Deltas taking `boxes` onto `gt_boxes`: [..., 4]."""
     height = boxes[..., 2] - boxes[..., 0]

@@ -30,8 +30,8 @@ cuDNN without its bias, and one hand-written pass over its output applies the
 bias, BatchNorm, the residual or the FPN's top-down add, and ReLU
 (:mod:`objectdetection_torch.ops.conv_epilogue`), bit-equal to those ops;
 training, the CPU and a QuantConv's float path run the ops apart. The pass
-takes channels_last memory, so the models hand the backbone
-:func:`channels_last` images.
+takes channels_last memory, so the models hand the backbone their images
+through :func:`prelude`.
 
 With ``remat`` (the Mask R-CNN family's ``remat_backbone``) each bottleneck
 block run with gradients on is rematerialized: its activations are freed
@@ -156,6 +156,15 @@ def channels_last(x: torch.Tensor) -> torch.Tensor:
     if x.stride() != (h * w * c, 1, w * c, c):
         x = x.clone(memory_format=torch.channels_last)
     return x
+
+
+def prelude(images: torch.Tensor, input_scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """The backbone's input from molded images [B, H, W, 3]: times
+    ``input_scale`` (where it is not 1), an NCHW view cast to ``dtype``, in
+    channels_last memory (:func:`channels_last`)."""
+    if input_scale != 1.0:
+        images = images * input_scale
+    return channels_last(images.permute(0, 3, 1, 2).to(dtype))
 
 
 def max_pool_same(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:

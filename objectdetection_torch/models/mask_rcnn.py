@@ -35,7 +35,7 @@ from objectdetection_torch.layers.detection import detection_layer
 from objectdetection_torch.layers.proposals import proposal_layer
 from objectdetection_torch import metrics
 from objectdetection_torch import quant as Q
-from objectdetection_torch.models.backbone import Quant, ResNetFPN, channels_last
+from objectdetection_torch.models.backbone import Quant, ResNetFPN, prelude
 from objectdetection_torch.models.heads import BoxClassHead, MaskHead
 from objectdetection_torch.models.rpn import RPNHead
 from objectdetection_torch.ops import roi_align
@@ -88,9 +88,7 @@ class MaskRCNN(nn.Module):
         cfg = self.config
         dt = compute_dtype(cfg)
         with metrics.span("odtorch.backbone"):
-            if cfg.input_scale != 1.0:
-                images = images * cfg.input_scale
-            feats = self.fpn(channels_last(images.permute(0, 3, 1, 2).to(dt)))
+            feats = self.fpn(prelude(images, cfg.input_scale, dt))
             feats_nhwc = [f.permute(0, 2, 3, 1) for f in feats]
         with metrics.span("odtorch.rpn"):
             if return_qfeats:

@@ -42,7 +42,7 @@ from objectdetection_torch.config import DetectorConfig, RetinaNetConfig
 from objectdetection_torch.convert import require_on, resolve_device, split_collections
 from objectdetection_torch.geometry import apply_box_deltas, clip_boxes, encode_box_deltas
 from objectdetection_torch.layers.proposals import top_k_stable, top_k_stable_nonneg
-from objectdetection_torch.models.backbone import Conv, ResNetFPN, channels_last
+from objectdetection_torch.models.backbone import Conv, ResNetFPN, prelude
 from objectdetection_torch.models.mask_rcnn import compute_dtype
 from objectdetection_torch.ops import anchor_match as anchor_match_op
 from objectdetection_torch.ops.nms import non_max_suppression
@@ -91,9 +91,7 @@ class RetinaNet(nn.Module):
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
         with metrics.span("odtorch.backbone"):
-            if cfg.input_scale != 1.0:
-                images = images * cfg.input_scale
-            feats = self.fpn(channels_last(images.permute(0, 3, 1, 2).to(compute_dtype(cfg))))
+            feats = self.fpn(prelude(images, cfg.input_scale, compute_dtype(cfg)))
         with metrics.span("odtorch.retina_subnets"):
             b = images.shape[0]
             nc = cfg.num_classes - 1  # no background channel (sigmoid head)

@@ -308,10 +308,11 @@ def batched_multilevel_roi_align_plain(
 
 
 def _check_pyramid(shapes, dtypes, devices, boxes, crop_size):
-    """Raise on what the kernels do not take: 4 levels [B, H_l, W_l, C] of one
-    dtype (f32 or bf16) on the boxes' device, boxes [B, R, 4], crop <= 32."""
-    if len(shapes) != 4:
-        raise ValueError("roi_align kernel: expects exactly the 4 levels P2..P5")
+    """Raise on what the kernels do not take: 1 to 4 levels [B, H_l, W_l, C]
+    of one dtype (f32 or bf16) on the boxes' device, boxes [B, R, 4], crop
+    <= 32."""
+    if not 1 <= len(shapes) <= 4:
+        raise ValueError("roi_align kernel: expects 1 to 4 levels (P2..P5, or one map)")
     dtype = dtypes[0]
     if dtype not in (torch.float32, torch.bfloat16, torch.int8):
         raise ValueError(f"roi_align kernel: unsupported dtype {dtype}")
@@ -354,7 +355,17 @@ _BACKWARD = {dtype: cuda_build.Entry("roi_align", f"roi_align_backward_{kind}", 
 
 
 def _level_dims(shapes):
-    return (ctypes.c_int * 8)(*[d for shape in shapes for d in shape[1:3]])
+    """(h, w) of each level, zeros for the levels after the last given: the
+    kernels pick among the given ones."""
+    dims = [d for shape in shapes for d in shape[1:3]]
+    return (ctypes.c_int * 8)(*dims, *[0] * (8 - len(dims)))
+
+
+def _level_ptrs(tensors):
+    """The levels' data pointers, the first repeated where fewer than 4 are
+    given (an empty level is never read)."""
+    ptrs = [t.data_ptr() for t in tensors]
+    return ptrs + ptrs[:1] * (4 - len(ptrs))
 
 
 def _forward_kernel(features, boxes, image_shape, crop_size) -> torch.Tensor:
@@ -372,7 +383,7 @@ def _forward_kernel(features, boxes, image_shape, crop_size) -> torch.Tensor:
     if b == 0 or r == 0:
         return out
     scale = _canonical_scale(float(image_shape[0] * image_shape[1]))
-    _FORWARD[dtype].launch(boxes.device, *[f.data_ptr() for f in feats],
+    _FORWARD[dtype].launch(boxes.device, *_level_ptrs(feats),
                            _level_dims([f.shape for f in feats]), boxes.data_ptr(),
                            out.data_ptr(), b, r, c, ph, pw, scale, LN2,
                            on_status=_no_layout("roi_align", c, dtype))
@@ -400,7 +411,7 @@ def _quant_kernel(features, boxes, image_shape, crop_size, out_quant, in_scale) 
     if b == 0 or r == 0:
         return out
     scale = _canonical_scale(float(image_shape[0] * image_shape[1]))
-    _QUANT.launch(boxes.device, *[f.data_ptr() for f in feats],
+    _QUANT.launch(boxes.device, *_level_ptrs(feats),
                   _level_dims([f.shape for f in feats]), boxes.data_ptr(), m.data_ptr(),
                   out.data_ptr(), _KINDS[dtype], _KINDS[out_dtype], b, r, c, ph, pw, scale, LN2,
                   on_status=_no_layout("roi_align_quant", c, dtype))
@@ -447,7 +458,7 @@ def _backward_kernel(grad_out, boxes, feature_shapes, image_shape):
     boxes = boxes.to(torch.float32).contiguous()
     scale = _canonical_scale(float(image_shape[0] * image_shape[1]))
     _BACKWARD[dtype].launch(dev, g_out.data_ptr(), _level_dims(shapes), boxes.data_ptr(),
-                            *[g.data_ptr() for g in grads],
+                            *_level_ptrs(grads),
                             None if scratch is None else scratch.data_ptr(),
                             None if marks is None else marks.data_ptr(),
                             b, r, c, ph, pw, scale, LN2)
@@ -500,6 +511,10 @@ def batched_multilevel_roi_align(
     """Pyramid ROIAlign: P2..P5 [B, H_l, W_l, C] (f32 or bf16) × boxes
     [B, R, 4] f32 → [B, R, ph, pw, C] in the feature dtype. Differentiable in
     the features on every device (never in the boxes).
+
+    Fewer levels (one map alone, say) are the pyramid's first ones: a box
+    whose rule names a later level takes the last given (with one map,
+    every box pools it).
 
     ``out_quant`` [ph, pw, C] scales → int8 output; ``in_scale`` (scalar or
     [C]) with int8 levels → the blend of the codes, dequantized (bf16

@@ -32,6 +32,11 @@ anchors. The serving path's device mold is held within 1e-3 of the
 CPU's with TF32 off, and the server's handler on the card answers two
 concurrent clients as it answers them in turn.
 
+Hybrid Task Cascade's shapes: NMS over 96 × 80 per-class problems of 1000
+rows at IoU 0.5 and budget 100, the per-class detection layer on the card
+equal to the CPU's, and ROIAlign on one, two or three levels (the semantic
+feature's single-map route).
+
 At the main path's own sizes, on the seeded inputs the timing tools share
 (``tools/torch_kernel_cases.py``): NMS at the serving, training, sparse and
 RetinaNet cases; ROIAlign, its int8 epilogues and its gradient at the COCO
@@ -154,6 +159,81 @@ def test_nms_kernel_raises_above_its_row_limit(cuda):
         nms.suppress(boxes, cls, 0.5)
     assert torch.equal(nms.suppress(boxes[:, :-1], cls[:, :-1], 0.5, 10),
                        torch.zeros(1, rows - 1, 4, device=cuda))
+
+
+def test_nms_kernel_at_the_htc_per_class_shape(cuda):
+    """Hybrid Task Cascade's per-class NMS: 96 images × 80 classes, each
+    class its own problem over the image's 1000 shared boxes sorted by that
+    class's scores (rows under 0.001 zeroed), at IoU 0.5 with a budget of
+    100: one launch over 7,680 problems, the survivor tables equal to the
+    plain version's (run on the CPU)."""
+    gen = torch.Generator().manual_seed(26)
+    boxes = torch.cat([cases.nms_inputs(gen, 1000, 1, 0, "cpu")[0] for _ in range(48)])
+    scores = torch.softmax(4 * torch.randn(96, 1000, 81, generator=gen), -1)[..., 1:]
+    scores = scores.transpose(1, 2).reshape(96 * 80, 1000)
+    order = torch.sort(-scores, dim=1, stable=True).indices
+    table = torch.gather(boxes.repeat_interleave(80, dim=0), 1, order[..., None].expand(-1, -1, 4))
+    table = torch.where((torch.gather(scores, 1, order) > 0.001)[..., None], table,
+                        torch.zeros_like(table))
+    cls = torch.zeros(table.shape[:2], dtype=torch.int32)
+    before = cuda_build.launches("nms")
+    got = nms.suppress(table.to(cuda), cls.to(cuda), 0.5, 100)
+    assert cuda_build.launches("nms") == before + 1
+    want = nms.suppress_plain(table, cls, 0.5, 100)
+    assert torch.equal(got.cpu(), want)
+    kept = (want != 0).any(-1).sum(-1)
+    assert int((kept >= 100).sum()) > 0.9 * kept.numel()  # the budget stops most problems
+    assert bool(((table != 0).any(-1).sum(-1) < 1000).any())
+
+
+def test_per_class_detection_layer_on_the_card_equals_the_cpu(cuda):
+    from objectdetection_torch.config import HTCConfig
+    from objectdetection_torch.layers.detection import per_class_detection_layer
+
+    gen = torch.Generator().manual_seed(27)
+    boxes = torch.cat([cases.nms_inputs(gen, 1000, 1, 0, "cpu")[0] for _ in range(2)])
+    probs = torch.softmax(4 * torch.randn(4, 1000, 81, generator=gen), -1)
+    rows_valid = torch.rand(4, 1000, generator=gen) > 0.1
+    cfg = HTCConfig()
+    got = per_class_detection_layer(boxes.to(cuda), probs.to(cuda), rows_valid.to(cuda), 0.001,
+                                    cfg)
+    want = per_class_detection_layer(boxes, probs, rows_valid, 0.001, cfg)
+    assert torch.equal(got.cpu(), want) and bool((want[..., 5] > 0).all())
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+def test_roi_align_kernels_on_fewer_levels(cuda, levels):
+    """The single-map route (the cascade's semantic feature: one map at
+    stride 8) and two or three levels: the forward f32 bit-equal to the
+    plain version, bf16 within its tolerance, the f32 gradient within its
+    bound; a box whose rule names a later level pools the last given."""
+    gen = torch.Generator().manual_seed(40 + levels)
+    sizes = (128, 64, 32)[:levels]
+    feats = [torch.randn(2, s, s, 256, generator=gen).to(cuda) for s in sizes]
+    boxes = cases.roi_boxes(gen, 1000, cuda)
+    image = (1024, 1024)
+    for crop in ((7, 7), (14, 14)):
+        before = cuda_build.launches("roi_align")
+        got = roi_align.batched_multilevel_roi_align(feats, boxes, image, crop)
+        assert cuda_build.launches("roi_align") == before + 1
+        assert torch.equal(got, roi_align.batched_multilevel_roi_align_plain(
+            feats, boxes, image, crop))
+    bf = [f.to(torch.bfloat16) for f in feats]
+    err = (roi_align.batched_multilevel_roi_align(bf, boxes, image, (14, 14)).float()
+           - roi_align.batched_multilevel_roi_align_plain(bf, boxes, image, (14, 14)).float())
+    assert float(err.abs().max()) <= roi_align.bf16_tolerance(bf)
+    grad = torch.randn(2, 1000, 14, 14, 256, generator=gen).to(cuda)
+    shapes = [tuple(f.shape) for f in feats]
+    got = roi_align.roi_align_backward(grad, boxes, shapes, image)
+    want = roi_align.roi_align_backward_plain(grad, boxes, shapes, image)
+    for g, w, tol in zip(got, want, roi_align.backward_tolerance(grad, boxes, shapes, image)):
+        assert bool(((g - w).abs() <= tol).all())
+    if levels == 1:  # every box on the one map: crop_and_resize of it away from its far
+        # edge (there a rounding past H - 1 zeroes a crop_and_resize sample)
+        inside = (boxes.amin(-1) >= 0) & (boxes.amax(-1) <= 0.95)
+        one = roi_align.crop_and_resize(feats[0], boxes, (14, 14))
+        full = roi_align.batched_multilevel_roi_align(feats, boxes, image, (14, 14))
+        assert torch.allclose(full[inside], one[inside], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
